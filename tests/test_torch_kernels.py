@@ -245,7 +245,7 @@ def test_constants_match_tpucomp(monkeypatch):
     counting = _CountingLax()
     monkeypatch.setattr(t_common, "lax", counting)
     t_common._far_level_segmented(jnp.asarray(x), U, U)
-    assert counting.rounds == common.FAR_MAX_ROUNDS == 15
+    assert counting.rounds == common.level_cap(U) == 15
 
 
 def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():

@@ -5,12 +5,14 @@ package computes the same functions with PyTorch and CUDA kernels written
 by hand for Hopper (``kernels/csrc``, built by nvcc at first use into
 ``tpucomp_torch/_build/``).  It never imports JAX.
 
-Ported so far: LZNT1 decode.
+Ported so far: LZNT1 decode and Xpress Huffman batched decode.
 
     import tpucomp_torch
     data = tpucomp_torch.decompress("lznt1", stream)            # on "cuda"
     data = tpucomp_torch.decompress("lznt1", stream, device="cpu")
     units = tpucomp_torch.decompress_batch("lznt1", unit_streams)
+    units = tpucomp_torch.decompress_batch("xpress_huff", unit_streams,
+                                           out_lens)          # 64 KiB units
 
 On CPU tensors every kernel's plain PyTorch version runs instead.
 """

@@ -3,8 +3,8 @@
 Counterparts of ``tpucomp.decompress(..., backend="tpu")`` and
 ``tpucomp.decompress_batch``.  Every call takes a ``device``; the default
 is ``"cuda"``, and asking for CUDA where it is not available raises.
-Only LZNT1 is ported so far; any other format raises
-:class:`UnsupportedFormatError`.
+Ported so far: LZNT1 (one-shot and batched) and Xpress Huffman's batched
+decode; any other call raises :class:`UnsupportedFormatError`.
 """
 
 from __future__ import annotations
@@ -12,17 +12,15 @@ from __future__ import annotations
 from typing import Optional
 
 from . import formats
-from .codecs import lznt1
+from .codecs import lznt1, xpress_huff
 from .errors import ArgError, UnsupportedFormatError
 from .formats import Format
 
 
-def _lznt1_only(fmt) -> None:
-    fmt = formats.canonical(fmt)
-    if fmt != Format.LZNT1:
-        raise UnsupportedFormatError(
-            f"format {fmt.name} is not ported to tpucomp_torch yet "
-            "(only LZNT1 decode is)")
+def _not_ported(fmt: Format, call: str):
+    return UnsupportedFormatError(
+        f"{call} of format {fmt.name} is not ported to tpucomp_torch yet "
+        "(LZNT1 decode and XPRESS_HUFF decompress_batch are)")
 
 
 def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,
@@ -34,16 +32,32 @@ def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,
     """
     if data is None:
         raise ArgError("data must be bytes-like")
-    _lznt1_only(fmt)
+    fmt = formats.canonical(fmt)
+    if fmt != Format.LZNT1:
+        raise _not_ported(fmt, "decompress")
     return lznt1.decompress(data, out_len, device=device)
 
 
-def decompress_batch(fmt, streams, out_lens=None, *, device="cuda") -> list:
+def decompress_batch(fmt, streams, out_lens=None, *,
+                     unit_size: Optional[int] = None, device="cuda") -> list:
     """Decompress independent unit streams in one device batch.
 
-    ``out_lens`` is accepted for parity with tpucomp and not needed: LZNT1
-    units are self-terminating.  A malformed unit raises :class:`ArgError`,
-    as tpucomp's does.
+    LZNT1: ``out_lens`` and ``unit_size`` are accepted for parity with
+    tpucomp and not needed (units are self-terminating); a malformed unit
+    raises :class:`ArgError`, as tpucomp's does.
+
+    XPRESS_HUFF: each stream is one block; ``out_lens`` (required, else
+    :class:`ArgError`) gives the decoded lengths, at most ``unit_size``
+    (default 65536, a multiple of 512).  A malformed unit raises
+    :class:`DataError`.
     """
-    _lznt1_only(fmt)
-    return lznt1.decompress_units(list(streams), device=device)
+    fmt = formats.canonical(fmt)
+    if fmt == Format.LZNT1:
+        return lznt1.decompress_units(list(streams), device=device)
+    if fmt == Format.XPRESS_HUFF:
+        if out_lens is None:
+            raise ArgError("XPRESS_HUFF: out_lens is required")
+        return xpress_huff.decompress_units(
+            list(streams), list(out_lens), unit_size or xpress_huff.BLOCK,
+            device=device)
+    raise _not_ported(fmt, "decompress_batch")

@@ -8,6 +8,7 @@ of a batch is one 4 KiB chunk.  The pipeline:
   near resolve (kernel) -> copies inside each 512-byte segment resolved,
                      the rest tagged with their absolute source
   far level (kernel)    -> pointer doubling over the whole row
+                     (``common.far_rounds`` at U = 4096: one level)
 
 Stored-raw chunks bypass the pipeline: their payload is the output.
 """
@@ -18,10 +19,9 @@ import numpy as np
 import torch
 
 from ..errors import ArgError, DataError
-from ..kernels.common import fill_records_delta
-from ..kernels.gather import far_level
+from ..kernels.common import far_rounds, fill_records_delta
 from ..kernels.lznt1_parse import COPY_BIT, lznt1_parse
-from ..kernels.resolve import resolve_near
+from ..kernels.resolve import SEG, resolve_near
 from ..util import resolve_device
 
 CHUNK = 4096
@@ -82,7 +82,7 @@ def _records_to_output(rec_pos, rec_val, p_final, err, payload, plen,
     is_copy = (vpack & COPY_BIT) != 0
     disp = vpack & (COPY_BIT - 1)
     litv = torch.where(is_copy, 0, vpack & 0xFF)
-    out_comp = far_level(resolve_near(is_copy, disp, litv))
+    out_comp = far_rounds(resolve_near(is_copy, disp, litv), CHUNK, SEG)
     out = torch.where(is_comp[:, None], out_comp.to(torch.uint8),
                       payload[:, :CHUNK])
     out_len = torch.where(is_comp, p_final, plen.clamp(max=CHUNK))

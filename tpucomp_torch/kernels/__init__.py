@@ -1,4 +1,5 @@
-"""Kernels of the port.  Each of ``lznt1_parse``, ``resolve`` and
-``gather`` holds a wrapper that launches a CUDA kernel (``csrc/*.cu``) on
-CUDA tensors and runs the plain PyTorch version beside it on CPU tensors;
-each wrapper counts its launches in ``<wrapper>.launches``."""
+"""Kernels of the port.  Each of ``lznt1_parse``, ``xh_parse``, ``fill``,
+``resolve`` and ``gather`` holds wrappers that launch a CUDA kernel
+(``csrc/*.cu``) on CUDA tensors and run the plain PyTorch version beside
+it on CPU tensors; each wrapper counts its launches in
+``<wrapper>.launches``.  ``huffman`` and ``common`` are plain PyTorch."""

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, under
-``tpucomp_torch/_build/``.  The library's name carries a hash of the
-flags and the sources, so a change to either builds a new one.  It is
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a``, all in
+parallel, and linked into one shared library with a plain C interface,
+at first use, under ``tpucomp_torch/_build/``.  The library's name
+carries a hash of the flags and the sources, so a change to either
+builds a new one.  It is
 loaded with ``ctypes``: pointers and the CUDA stream pass as
 ``c_void_p``, sizes as ``c_int``, and every entry point returns the
 launch's ``cudaGetLastError()``.
@@ -53,13 +54,33 @@ def find_nvcc() -> str:
         "the CUDA kernels cannot be built")
 
 
+def _run(procs) -> str:
+    """Wait for every compiler process; raise if one failed.  Returns
+    their output, in order."""
+    out = ""
+    failed = None
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        out += stdout + stderr
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd[0], proc.returncode, stdout + stderr)
+    if failed:
+        raise RuntimeError(f"{failed[0]} failed (rc {failed[1]}):\n{failed[2]}")
+    return out
+
+
 def shared_library(compiler: str, flags: list[str], srcs: list[str],
                    name: str) -> tuple[str, str]:
     """Compile ``srcs`` into ``BUILD_DIR/lib<name>-<key>.so`` unless that
     library exists.  ``key`` hashes ``flags`` and the sources' bytes.
 
-    Returns the library's path and the compiler's output ("" when the
-    library was already built); raises if the compiler fails.
+    Every source compiles to an object in its own compiler process, all
+    started together, and one more call links them: the build takes about
+    as long as its slowest source.  ``flags`` serve both steps (the
+    compile drops ``-shared``).
+
+    Returns the library's path and the compilers' output ("" when the
+    library was already built); raises if a compiler fails.
     """
     h = hashlib.sha256("\0".join(flags).encode())
     for src in srcs:
@@ -69,22 +90,24 @@ def shared_library(compiler: str, flags: list[str], srcs: list[str],
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a private name, then rename: a concurrent loader never
+    cflags = [f for f in flags if f != "-shared"]
+    # build in a private directory, then rename: a concurrent loader never
     # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([compiler, *flags, "-o", tmp, *srcs],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"{compiler} failed (rc {proc.returncode}):\n{proc.stdout}"
-                f"{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, f"{k}.o") for k in range(len(srcs))]
+        procs = []
+        for src, obj in zip(srcs, objs):
+            cmd = [compiler, *cflags, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log = _run(procs)
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [compiler, *flags, "-o", tmp, *objs]
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, proc.stdout + proc.stderr
+    return path, log
 
 
 def build() -> tuple[str, str]:

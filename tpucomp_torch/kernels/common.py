@@ -1,9 +1,9 @@
-"""The pieces of ``tpucomp.kernels.common`` that LZNT1 decode uses.
+"""Shared pieces of ``tpucomp.kernels.common`` that the port's decoders use.
 
 ``fill_records_delta`` is XLA in tpucomp, not Pallas, so it stays plain
-PyTorch here.  The far tail of copy resolution (tpucomp's ``_far_rounds``
-→ ``_far_level_segmented(out, 4096, 4096)``) is one CUDA kernel:
-:func:`tpucomp_torch.kernels.gather.far_level`.
+PyTorch here.  :func:`far_rounds` is tpucomp's ``_far_rounds``: the far
+levels that resolve the tags the near walk leaves, each a CUDA kernel of
+:mod:`tpucomp_torch.kernels.gather`.
 """
 
 from __future__ import annotations
@@ -12,12 +12,48 @@ import torch
 
 FAR_TAG = 1 << 24  # out-value tag: "pointer to earlier output position"
 SENT_KEY = 1 << 28  # empty-record key (the parse's SENT)
+# widest row: absolute sources must fit the far levels' 17-bit field
+MAX_ROW = 1 << 16
 
-# tpucomp._far_rounds at U = 4096, as LZNT1 calls it (min_hop = 512): no
-# 4 KiB segment level runs (``4096 < U`` is false), so only the full-row
-# level does, capped at bitlen(4095) + 3 rounds (common.py:1674).
-FAR_ROW = 4096
-FAR_MAX_ROUNDS = (FAR_ROW - 1).bit_length() + 3
+# tpucomp's _far_rounds levels (common.py:1472): one 4 KiB segment level,
+# capped at 6 rounds, before the full-row level
+SEG_LEVEL = 4096
+SEG_LEVEL_CAP = 6
+# value-chase probe rounds of the archive fast path (common.py:1283)
+ARCHIVE_PROBE_BUDGET = 2
+
+
+def level_cap(S: int) -> int:
+    """Round cap of a doubling level over S-wide segments when none is
+    given: ``bitlen(S - 1) + 3`` (common.py:1674); 15 at 4096, 19 at
+    65536."""
+    return max(1, (S - 1).bit_length()) + 3
+
+
+def far_rounds(out: torch.Tensor, U: int, min_hop: int,
+               fast: bool = False) -> torch.Tensor:
+    """Resolve the far tags of the near walk's output, int32 [N, U], as
+    tpucomp's ``_far_rounds(out, U, min_hop, fast)`` (``max_hop=None``).
+
+    - The 4 KiB segment level runs when ``min_hop < 4096 < U`` and 4096
+      divides U (common.py:1507-1510); its leftover tags stay.
+    - ``fast``: then the value-chase probes, at most
+      ``ARCHIVE_PROBE_BUDGET`` rounds (common.py:1511-1529).
+    - Then the full-row level; the tags it leaves are zeroed.
+
+    LZNT1 (U = 4096) runs the full-row level alone.  Returns bytes, int32
+    [N, U].
+    """
+    # deferred: gather imports this module's constants
+    from .gather import MAX_SEG, far_level, far_probe, far_row
+
+    if min_hop < SEG_LEVEL < U and U % SEG_LEVEL == 0:
+        out = far_level(out, SEG_LEVEL, SEG_LEVEL_CAP, zero=False)
+    if fast:
+        out = far_probe(out, ARCHIVE_PROBE_BUDGET)
+    if U <= MAX_SEG:
+        return far_level(out)
+    return far_row(out)
 
 
 def fill_records_delta(rec_pos: torch.Tensor, rec_val: torch.Tensor,

@@ -1,0 +1,101 @@
+"""Records -> dense per-byte planes: the fill of Xpress Huffman decode.
+
+Counterpart of ``tpucomp/kernels/fill_pallas.py``
+``fill_records_delta2_fused`` and of the contract it shares with
+``common.fill_records_delta2``, for any record count R (tpucomp's fused
+kernel takes R <= U only and leaves wider streams to XLA).
+:func:`fill_records_delta2` launches ``csrc/fill_records.cu`` on CUDA
+tensors and runs :func:`fill_records_delta2_ref` on CPU tensors.
+
+The contract, per row and output byte j in [0, U):
+  - a record with ``0 <= pos < U`` is real; any other is empty;
+  - real positions do not decrease along the row, and among adjacent
+    records at one position the last wins;
+  - ``val[j]`` is the value mod 2^22 of the last real record with
+    ``pos <= j``, and ``pos[j]`` that record's position mod 2^17 (the
+    token start the periodic fold needs); both 0 where there is none;
+  - ``ovf[n]`` is 1 when the row has more than ``keep`` distinct real
+    records (the last of each adjacent run counts).
+tpucomp's XLA form drops the records past ``keep``, its fused kernel
+fills them; an overflowing row is an err row, whose bytes are
+don't-care, and this port fills them as the fused kernel does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+V_RING = 1 << 22
+P_RING = 1 << 17
+
+
+def _check(rec_pos, rec_val, U, keep):
+    if rec_pos.dtype != torch.int32 or rec_pos.dim() != 2:
+        raise ValueError("rec_pos must be an int32 [N, R] tensor")
+    if rec_val.dtype != torch.int32 or rec_val.shape != rec_pos.shape:
+        raise ValueError("rec_val must be an int32 tensor shaped as rec_pos")
+    if U <= 0 or keep < 0:
+        raise ValueError("U must be positive and keep non-negative")
+
+
+def _keep(rec_pos, U, keep):
+    return min(rec_pos.shape[1], U) if keep is None else keep
+
+
+def fill_records_delta2_ref(rec_pos: torch.Tensor, rec_val: torch.Tensor,
+                            U: int, keep=None):
+    """Plain PyTorch version of :func:`fill_records_delta2`: an "amax"
+    scatter of slot indices into positions, a running max along the row,
+    and a gather of both planes."""
+    keep = _keep(rec_pos, U, keep)
+    _check(rec_pos, rec_val, U, keep)
+    N, R = rec_pos.shape
+    real = (rec_pos >= 0) & (rec_pos < U)
+    slot = torch.arange(R, device=rec_pos.device).expand(N, R)
+    # empty records scatter into a spare column U, sliced off below
+    last = torch.full((N, U + 1), -1, dtype=torch.long, device=rec_pos.device)
+    last.scatter_reduce_(1, torch.where(real, rec_pos, U).long(),
+                         torch.where(real, slot, -1), "amax")
+    last = last[:, :U].cummax(dim=1).values
+    bound = last >= 0
+    at = last.clamp(min=0)
+    val = torch.where(bound, rec_val.gather(1, at) & (V_RING - 1), 0)
+    pos = torch.where(bound, rec_pos.gather(1, at) & (P_RING - 1), 0)
+    nxt_same = torch.zeros_like(real)
+    nxt_same[:, :-1] = real[:, 1:] & (rec_pos[:, 1:] == rec_pos[:, :-1])
+    ovf = ((real & ~nxt_same).sum(dim=1) > keep).to(torch.int32)
+    return val.to(torch.int32), pos.to(torch.int32), ovf
+
+
+def fill_records_delta2(rec_pos: torch.Tensor, rec_val: torch.Tensor,
+                        U: int, keep=None):
+    """Fill a row of U bytes from each row of token records.
+
+    Args:
+      rec_pos, rec_val: int32 [N, R], record positions and values.
+      U:    the output width.
+      keep: the most distinct real records a row may have; default
+            min(R, U), which no row can pass.
+
+    Returns (val [N, U], pos [N, U], ovf [N]), all int32: see the module
+    docstring.
+    """
+    if not _build.use_kernel(rec_pos, rec_val):
+        return fill_records_delta2_ref(rec_pos, rec_val, U, keep)
+    keep = _keep(rec_pos, U, keep)
+    _check(rec_pos, rec_val, U, keep)
+    rec_pos, rec_val = rec_pos.contiguous(), rec_val.contiguous()
+    N, R = rec_pos.shape
+    val = torch.empty((N, U), dtype=torch.int32, device=rec_pos.device)
+    pos = torch.empty_like(val)
+    ovf = torch.empty((N,), dtype=torch.int32, device=rec_pos.device)
+    if N:
+        _build.launch("fill_records", [rec_pos, rec_val, val, pos, ovf],
+                      [N, R, U, min(keep, 1 << 30)])
+        fill_records_delta2.launches += 1
+    return val, pos, ovf
+
+
+fill_records_delta2.launches = 0

@@ -1,15 +1,28 @@
-"""The far level of copy resolution: pointer doubling over whole rows.
+"""The far levels of copy resolution: pointer doubling, and value-chase
+probes.
 
-Counterpart of ``tpucomp/kernels/gather_pallas.py`` ``gather18_stacked``
-together with the round loop of ``common._far_level_segmented`` that
-drives it, as ``common._far_rounds`` runs them for LZNT1 (U = S = 4096,
-at most ``FAR_MAX_ROUNDS`` rounds, leftover tags zeroed).  :func:`far_level`
-launches ``csrc/far_level.cu``, which runs every round in one launch, on
-CUDA tensors and :func:`far_level_ref` on CPU tensors.
+After the near walk, a position holds a byte or ``FAR_TAG | src``, an
+absolute source in its row.  Counterparts of tpucomp's round loops and
+the Pallas gathers they drive (``tpucomp/kernels/common.py``,
+``gather_pallas.py``):
 
-State per position, 18 bits: a resolved byte, or ``(1 << 17) | src``.  A
-round sets ``st[j] = st[src]`` wherever a tag is live; a fetched tag is
-the target's own pointer, so every chain halves per round.
+- :func:`far_level`: ``_far_level_segmented(out, U, S, cap)`` for
+  segments of S <= 4096 bytes, the fetch ``gather18_stacked``.  Launches
+  ``csrc/far_level.cu``, one block per segment.
+- :func:`far_row`: the full-row level ``_far_level_segmented(out, U, U)``
+  of rows wider than 4096 bytes, the fetch ``gather18_pairs``.  Launches
+  ``csrc/far_row.cu``, one block per row.
+- :func:`far_probe`: the value-chase rounds of ``_far_rounds(fast=True)``
+  (``_far_probe_round``), the fetch ``probe_gather_pairs``.  Launches
+  ``csrc/far_probe.cu``, one block per row.
+
+Each runs its plain PyTorch version (``*_ref``) on CPU tensors.
+
+Doubling state per position, 18 bits: a resolved byte, or ``(1 << 17) |
+src``.  A round sets ``st[j] = st[src]`` wherever a tag is live and its
+source lies in the segment; a fetched tag is the target's own pointer, so
+every chain halves per round.  A fetched tag whose source lies outside
+the segment is adopted: it stays, and the next level chases it.
 """
 
 from __future__ import annotations
@@ -17,9 +30,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .common import FAR_MAX_ROUNDS, FAR_ROW, FAR_TAG
+from .common import ARCHIVE_PROBE_BUDGET, FAR_TAG, MAX_ROW, level_cap
 
-U = FAR_ROW
+MAX_SEG = 4096  # a segment's double-buffered state fits shared memory
 
 
 def gather18_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -30,46 +43,140 @@ def gather18_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, got & 0x3FFFF, 0)
 
 
-def _check(out):
-    if out.dtype != torch.int32 or out.dim() != 2 or out.shape[1] != U:
-        raise ValueError(f"far level takes an int32 [N, {U}] tensor")
+def _check(out, S):
+    if out.dtype != torch.int32 or out.dim() != 2:
+        raise ValueError("the far levels take an int32 [N, U] tensor")
+    U = out.shape[1]
+    if not 0 < U <= MAX_ROW or U % S:
+        raise ValueError(f"rows must be at most {MAX_ROW} wide and cut into "
+                         f"whole segments of {S}, got {U}")
 
 
-def far_level_ref(out: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`far_level`: a ``torch.gather``
-    round loop, stopped when no row has a live tag, as tpucomp's
-    ``while_loop`` is."""
-    _check(out)
-    tagged = (out & FAR_TAG) != 0
-    st = torch.where(tagged, (1 << 17) | (out & (FAR_TAG - 1)), out & 0x1FF)
-    for _ in range(FAR_MAX_ROUNDS):
+def far_level_ref(out: torch.Tensor, S=None, cap=None,
+                  zero: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`far_level`: a ``torch.gather`` round
+    loop over all segments, stopped when no segment has a live local tag,
+    as tpucomp's ``while_loop`` is."""
+    N, U = out.shape
+    S = S or U
+    _check(out, S)
+    cap = cap or level_cap(S)
+    nseg = U // S
+    st = out.reshape(N * nseg, S)
+    tagged = (st & FAR_TAG) != 0
+    st = torch.where(tagged, (1 << 17) | (st & (FAR_TAG - 1)), st & 0x1FF)
+    base = (torch.arange(N * nseg, dtype=torch.int32, device=out.device)
+            % nseg * S)[:, None]
+    for _ in range(cap):
         srcp = st & 0x1FFFF
-        chase = ((st >> 17) == 1) & (srcp < U)
+        chase = ((st >> 17) == 1) & (srcp >= base) & (srcp < base + S)
         if not bool(chase.any()):
             break
-        st = torch.where(chase, gather18_ref(st, torch.where(chase, srcp, 0)),
-                         st)
-    live = (st >> 17) == 1
-    res = torch.where(live, FAR_TAG | (st & 0x1FFFF), st & 0x1FF)
-    # tags left after the round cap (only corrupt, cyclic streams): zero
-    return torch.where((res & FAR_TAG) != 0, 0, res)
+        st = torch.where(chase, gather18_ref(st, torch.where(
+            chase, srcp - base, 0)), st)
+    res = torch.where((st >> 17) == 1, FAR_TAG | (st & 0x1FFFF), st & 0x1FF)
+    if zero:
+        # tags left after the round cap (only corrupt, cyclic streams): zero
+        res = torch.where((res & FAR_TAG) != 0, 0, res)
+    return res.reshape(N, U)
 
 
-def far_level(out: torch.Tensor) -> torch.Tensor:
-    """Resolve the far tags that :func:`resolve.resolve_near` left.
+def far_level(out: torch.Tensor, S=None, cap=None,
+              zero: bool = True) -> torch.Tensor:
+    """One doubling level over segments of S bytes (default: the row).
 
-    Takes and returns int32 [N, 4096]; the result holds bytes, with 0
-    where a tag survived the round cap.
+    Takes and returns int32 [N, U], U a multiple of S and S <= 4096.
+    ``cap`` bounds the rounds (default ``level_cap(S)``).  The result holds
+    bytes and, for chains the level did not finish, ``FAR_TAG | src``;
+    with ``zero`` those become 0, as after tpucomp's last level.
     """
     if not _build.use_kernel(out):
-        return far_level_ref(out)
-    _check(out)
+        return far_level_ref(out, S, cap, zero)
+    N, U = out.shape
+    S = S or U
+    _check(out, S)
+    if S > MAX_SEG:
+        raise ValueError(f"segments wider than {MAX_SEG} take far_row")
     src = out.contiguous()
     res = torch.empty_like(src)
-    if res.shape[0]:
-        _build.launch("far_level", [src, res], [res.shape[0]])
+    if N:
+        _build.launch("far_level", [src, res],
+                      [N * (U // S), S, U // S, cap or level_cap(S),
+                       int(zero)])
         far_level.launches += 1
     return res
 
 
 far_level.launches = 0
+
+
+def far_row_ref(out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`far_row`: the full-row level of
+    :func:`far_level_ref`, leftover tags zeroed."""
+    return far_level_ref(out, None, None, zero=True)
+
+
+def far_row(out: torch.Tensor) -> torch.Tensor:
+    """The last doubling level, over whole rows of any width up to 65536:
+    at most ``level_cap(U)`` rounds (19 at U = 65536), then the tags left
+    are zeroed.  Takes and returns int32 [N, U]."""
+    if not _build.use_kernel(out):
+        return far_row_ref(out)
+    N, U = out.shape
+    _check(out, U)
+    src = out.contiguous()
+    res = torch.empty_like(src)
+    if N:
+        # the round state ping-pongs between res and this scratch
+        scratch = torch.empty_like(src)
+        _build.launch("far_row", [src, res, scratch], [N, U, level_cap(U)])
+        far_row.launches += 1
+    return res
+
+
+far_row.launches = 0
+
+
+def far_probe_ref(out: torch.Tensor,
+                  rounds: int = ARCHIVE_PROBE_BUDGET) -> torch.Tensor:
+    """Plain PyTorch version of :func:`far_probe`: tpucomp's round loop,
+    stopped when no row changed or no tag is left."""
+    _check(out, out.shape[1])
+    U = out.shape[1]
+    for _ in range(rounds):
+        tagged = (out & FAR_TAG) != 0
+        if not bool(tagged.any()):
+            break
+        probe = torch.where(tagged, 256, out & 0xFF)
+        src = torch.where(tagged, out & (FAR_TAG - 1), 0)
+        ok = src < U
+        fetched = torch.where(ok, probe.gather(1, torch.where(ok, src, 0)
+                                               .long()), 0)
+        nxt = torch.where(tagged & (fetched < 256), fetched, out)
+        if torch.equal(nxt, out):
+            break
+        out = nxt
+    return out
+
+
+def far_probe(out: torch.Tensor,
+              rounds: int = ARCHIVE_PROBE_BUDGET) -> torch.Tensor:
+    """Value-chase probes, the archive fast path: up to ``rounds`` rounds
+    of ``out[j] = byte of out[src]`` for every tag whose source is already
+    a byte (a source outside the row reads 0); a tag whose source is still
+    tagged stays.  Takes and returns int32 [N, U] in the near walk's
+    encoding (bytes, ``FAR_TAG | src``)."""
+    if not _build.use_kernel(out):
+        return far_probe_ref(out, rounds)
+    _check(out, out.shape[1])
+    N, U = out.shape
+    src = out.contiguous()
+    res = torch.empty_like(src)
+    if N:
+        scratch = torch.empty_like(src) if rounds > 1 else res
+        _build.launch("far_probe", [src, res, scratch], [N, U, rounds])
+        far_probe.launches += 1
+    return res
+
+
+far_probe.launches = 0
