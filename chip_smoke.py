@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of tpucomp_torch on one NVIDIA GPU: LZNT1 decode and Xpress
-Huffman (XH) batched decode end to end.
+"""Smoke run of tpucomp_torch on one NVIDIA GPU: LZNT1 decode, Xpress
+Huffman (XH) batched decode and LZNT1 encode end to end.
 
     python3 chip_smoke.py
 
@@ -39,6 +39,24 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    and ``decompress_batch``, the median of 5; the host steps; the device
    stages; peak memory; and one ``decompress_batch`` under the profiler.
 
+7. Encode kernel vs plain: the corpus's 8208 chunks as one [8208, 4096]
+   batch on the card.  The run matcher, the row sort (the hash sort's key
+   plane, and the un-sort's two planes beside ``torch.sort`` + ``gather``,
+   the library call), and the greedy walk with and without the layout
+   sums, each against its plain version on the same tensors, equal
+   exactly; each one's time, its plain version's and its bound.
+8. Encode main path, with the encode kernels' launch counts set to 0
+   first: ``tpucomp_torch.compress("lznt1", data)`` of the corpus, equal
+   to ``compress(..., device="cpu")`` (the plain versions end to end) and
+   decoding back through ``decompress`` on the card and the native C
+   decoder; ``compress_batch`` of its 4 KiB units plus odd-length ones,
+   equal to the one-shot's chunks and decoding back; every encode kernel
+   must have launched in both calls.  Then the compressed size beside the
+   native C encoder's; GB/s of ``encode_batch`` (resident), ``compress``
+   and ``compress_batch``, the median of 5; ``compress`` step by step;
+   ``find_matches`` stage by stage; peak memory; one ``compress`` under
+   the profiler.
+
 The last two lines are JSON: the kernels, and ``{"ok": true, "device":
 ...}``.  The script exits nonzero, printing neither, when CUDA is absent.
 It never imports JAX or the tpucomp package: it builds the native C codec
@@ -67,6 +85,28 @@ UNIT = 64 << 10  # NTFS's LZNT1 compression unit
 N_MALFORMED = 256
 N_XH_MALFORMED = 32
 XH_SUB_SHORTEST = 32  # corpus streams in the plain parse's sub-batch
+
+
+# H100 SXM device memory rate (NVIDIA's data sheet): every kernel here is
+# bound by bytes, so its bound is the bytes it must move over this rate
+HBM_BYTES_PER_S = 3.35e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_entry(name, replaces, max_err, ms, plain_ms, moved,
+                 library_ms=None) -> dict:
+    """The ``kernels`` line's entry of one kernel: ``moved`` is the bytes
+    its inputs and outputs hold at this run's shapes (each read or
+    written once), over the device memory rate."""
+    return {"name": name, "route": "cuda",
+            "source": f"tpucomp_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -335,12 +375,13 @@ def xh_phases(dev, units, native, kernels) -> dict:
           f"ms, plain {parse_plain_ms:.4f} ms; kernel on the whole batch "
           f"({N} rows, longest body {int(args[1].max())} bytes) "
           f"{parse_ms:.4f} ms")
-    kernels.append({
-        "name": "xh_parse", "route": "cuda",
-        "source": "tpucomp_torch/kernels/csrc/xh_parse.cu",
-        "replaces": "tpucomp/kernels/xh_pallas.py:371",
-        "max_abs_err": parse_err, "ms": parse_sub_ms,
-        "plain_ms": parse_plain_ms})
+    # the sub-batch's body bytes as far as each row's length, the rest of
+    # the inputs and the record planes whole
+    kernels.append(kernel_entry(
+        "xh_parse", "tpucomp/kernels/xh_pallas.py:371", parse_err,
+        parse_sub_ms, parse_plain_ms,
+        int(sub_args[1].clamp(min=0).sum()) + nbytes(*sub_args[1:])
+        + nbytes(*parsed_ref)))
 
     rec_pos, rec_val, p_final, errk = parsed
     fill_in = (rec_pos, rec_val, UNIT, UNIT)
@@ -383,11 +424,8 @@ def xh_phases(dev, units, native, kernels) -> dict:
             entry = next(k for k in kernels if k["name"] == name)
             entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
             continue
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"tpucomp_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms})
+        kernels.append(kernel_entry(name, replaces, max_err, ms, plain_ms,
+                                    nbytes(*fargs[:2], *got)))
     del parsed, parsed_ref, filled, near_in, near, seg, probed, row, args
     del sub_args, rec_pos, rec_val, batch, fill_in, seg_in
 
@@ -491,6 +529,226 @@ def xh_phases(dev, units, native, kernels) -> dict:
     return launches
 
 
+def encode_phases(dev, data: bytes, native, native_stream: bytes,
+                  kernels) -> dict:
+    """Phases 7 and 8, LZNT1 encode.  Adds the encode kernels' entries to
+    ``kernels`` and returns their launches on the encode main path."""
+    import torch
+
+    import tpucomp_torch
+    from tpucomp_torch.codecs import lznt1 as lz
+    from tpucomp_torch.config import DEFAULT as MATCH
+    from tpucomp_torch.kernels import commit, match, runs, sort
+
+    # ---- 7. kernel vs plain ---------------------------------------------------
+    chunks_np, clen_np = lz.split_chunks(data)
+    chunks = torch.from_numpy(chunks_np).to(dev)
+    clen = torch.from_numpy(clen_np).to(dev)
+    N, U = chunks.shape
+    print(f"encode kernel vs plain at [{N}, {U}] (the corpus's chunks), "
+          f"config {MATCH.to_dict()}")
+
+    def check(name, fn, ref, args, reps=20, plain_reps=3):
+        got = fn(*args)
+        max_err = compare(name, got, ref(*args))
+        ms = statistics.median(cuda_ms(lambda: fn(*args), reps=reps))
+        plain_ms = statistics.median(cuda_ms(lambda: ref(*args),
+                                             reps=plain_reps))
+        return got, max_err, ms, plain_ms
+
+    def show(label, ms, plain_ms, moved, extra=""):
+        print(f"{label}: equal to plain; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} "
+              f"ms ({moved} bytes){extra}")
+
+    disps = tuple(MATCH.run_disps)
+    got, err, ms, plain_ms = check("run_matchlens", runs.run_matchlens,
+                                   runs.run_matchlens_ref, (chunks, disps))
+    moved = nbytes(chunks, *got)
+    show(f"run_matchlens (d = {disps})", ms, plain_ms, moved)
+    kernels.append(kernel_entry("run_matchlens",
+                                "tpucomp/kernels/runs_pallas.py:82", err, ms,
+                                plain_ms, moved))
+    del got
+
+    # the hash sort: the chain keys alone, then the route's word gathers
+    key = match.hash_keys(chunks, MATCH.hash_bits, 12)
+    (skey,), hs_err, hs_ms, hs_plain_ms = check(
+        "sort_rows (hash key)", sort.sort_rows, sort.sort_rows_ref, ((key,),))
+    show("sort_rows (hash key, 1 plane)", hs_ms, hs_plain_ms,
+         nbytes(key, skey))
+    w = match.le_words(chunks)
+    nwords = MATCH.cap // 4
+    route_ms = statistics.median(cuda_ms(lambda: match.sorted_words(
+        w, sort.sort_rows((key,))[0] & (U - 1), nwords), reps=10))
+    # reads the key and the word plane, writes the sorted key and the words
+    route_moved = nbytes(key, w, skey) + nwords * nbytes(w)
+    print(f"hash sort route (kernel on the key, then {nwords} word gathers): "
+          f"{route_ms:.4f} ms, bound "
+          f"{route_moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del key, skey, w
+
+    spos, packed, _ = match.hash_best_match_sorted(
+        chunks, U, MATCH.hash_bits, MATCH.num_candidates, MATCH.cap,
+        pos_bits=12)
+    got, un_err, ms, plain_ms = check(
+        "sort_rows (un-sort)", sort.sort_rows, sort.sort_rows_ref,
+        ((spos, packed),))
+
+    def library_sort():
+        _, idx = torch.sort(spos, dim=1)
+        return packed.gather(1, idx)
+
+    library_ms = statistics.median(cuda_ms(library_sort, reps=20))
+    moved = nbytes(spos, packed, *got)
+    show("sort_rows (un-sort, 2 planes)", ms, plain_ms, moved,
+         f", torch.sort + gather {library_ms:.4f} ms")
+    kernels.append(kernel_entry(
+        "sort_rows", "tpucomp/kernels/sort_pallas.py:95", max(hs_err, un_err),
+        ms, plain_ms, moved, library_ms))
+    del spos, packed, got
+
+    best_len, _, use_match, okpos = lz.find_matches(chunks, clen)
+    walk_in = (use_match, best_len, okpos)
+    got, lay_err, ms, plain_ms = check(
+        "greedy_commit_layout", commit.greedy_commit_layout,
+        lambda *a: commit.greedy_commit_ref(*a, layout=True), walk_in,
+        plain_reps=1)
+    moved = nbytes(*walk_in, *got)
+    show(f"greedy_commit_layout ({int(got[0].sum())} tokens)", ms, plain_ms,
+         moved)
+    _, com_err, com_ms, com_plain_ms = check(
+        "greedy_commit", commit.greedy_commit, commit.greedy_commit_ref,
+        walk_in, plain_reps=1)
+    show("greedy_commit (no layout)", com_ms, com_plain_ms,
+         nbytes(*walk_in) + N * U)
+    kernels.append(kernel_entry(
+        "greedy_commit", "tpucomp/kernels/lz_pallas.py:146",
+        max(lay_err, com_err), ms, plain_ms, moved))
+    del got, walk_in, best_len, use_match, okpos
+
+    # ---- 8. main path ---------------------------------------------------------
+    wrappers = {"run_matchlens": (runs.run_matchlens,),
+                "sort_rows": (sort.sort_rows,),
+                "greedy_commit": (commit.greedy_commit,
+                                  commit.greedy_commit_layout)}
+
+    def reset():
+        for fns in wrappers.values():
+            for fn in fns:
+                fn.launches = 0
+
+    def counts():
+        return {k: sum(fn.launches for fn in fns)
+                for k, fns in wrappers.items()}
+
+    rng = np.random.default_rng(SEED + 2)
+    units = [data[i:i + lz.CHUNK] for i in range(0, len(data), lz.CHUNK)]
+    odd = [b"", b"a", b"ab", b"abc", data[:4095], data[12345:13345],
+           rng.integers(0, 256, 777, dtype=np.uint8).tobytes()]
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    stream = tpucomp_torch.compress("lznt1", data)
+    one_launches = counts()
+    reset()
+    got_units = tpucomp_torch.compress_batch("lznt1", units + odd)
+    batch_launches = counts()
+    print(f"encode main path launches: compress {one_launches}, "
+          f"compress_batch {batch_launches}")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    want = tpucomp_torch.compress("lznt1", data, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    require(stream == want, "the card's LZNT1 stream differs from the plain "
+            "versions' on the CPU")
+    print(f"compress: {len(stream)} bytes (ratio {len(stream) / len(data)}; "
+          f"native C encoder {len(native_stream)}, ratio "
+          f"{len(native_stream) / len(data)}), equal to "
+          f"compress(device='cpu') ({cpu_s:.2f} s on the host)")
+    require(tpucomp_torch.decompress("lznt1", stream) == data,
+            "the card's stream does not decode back through decompress")
+    require(native.lznt1_decompress(stream, len(data)) == data,
+            "the card's stream does not decode back through the native C "
+            "decoder")
+    print("compress: the stream decodes back to the input through "
+          "tpucomp_torch.decompress and the native C decoder")
+    spans = chunk_spans(stream)
+    require(len(spans) == len(units) and all(
+        got_units[k] == stream[a:b] for k, (a, b) in enumerate(spans)),
+        "compress_batch's units differ from compress's chunks")
+    require(got_units[len(units)] == b"" and all(
+        got_units[len(units) + k] == tpucomp_torch.compress("lznt1", u)
+        for k, u in enumerate(odd) if u), "compress_batch's odd units differ "
+        "from compress")
+    require(tpucomp_torch.decompress_batch("lznt1", got_units)
+            == units + odd, "compress_batch's streams do not decode back")
+    print(f"compress_batch: {len(units)} units of {lz.CHUNK} bytes equal to "
+          f"compress's chunks, {len(odd)} odd units (lengths "
+          f"{[len(u) for u in odd]}) equal to compress; all decode back")
+    for name in wrappers:
+        require(one_launches[name] > 0 and batch_launches[name] > 0,
+                f"{name} never launched on the encode main path")
+    print(f"encode peak device memory: {peak / 2**30:.3f} GiB")
+
+    total = len(data)
+    timed = [
+        ("encode_batch (device, batch resident)",
+         lambda: lz.encode_batch(chunks, clen)),
+        ("compress (host split + copies + device + framing)",
+         lambda: tpucomp_torch.compress("lznt1", data)),
+        (f"compress_batch ({len(units)} units of 4 KiB)",
+         lambda: tpucomp_torch.compress_batch("lznt1", units)),
+    ]
+    for label, fn in timed:
+        ms = cuda_ms(fn, reps=5)
+        med = statistics.median(ms)
+        print(f"lznt1 {label}: median {med:.4f} ms of "
+              f"{[round(m, 4) for m in ms]} -> {total / med / 1e6:.4f} GB/s")
+    steps: dict[str, list[float]] = {}
+    for _ in range(3):
+        c_np, l_np = clock(steps, "split_chunks (host)",
+                           lambda: lz.split_chunks(data))
+        c, n = clock(steps, "copy to device", lambda: (
+            torch.from_numpy(c_np).to(dev), torch.from_numpy(l_np).to(dev)))
+        m = clock(steps, "find_matches", lambda: lz.find_matches(c, n))
+        wk = clock(steps, "greedy_commit_layout",
+                   lambda: commit.greedy_commit_layout(m[2], m[0], m[3]))
+        pay = clock(steps, "assemble_payload",
+                    lambda: lz.assemble_payload(c, m[0], m[1], m[2], *wk))
+        host = clock(steps, "copy to host", lambda: (
+            pay[0].cpu().numpy(), pay[1].cpu().numpy()))
+        clock(steps, "frame_chunks + join (host)", lambda: b"".join(
+            lz.frame_chunks(*host, c_np, l_np)))
+        del c, n, m, wk, pay
+    print("compress steps, host clock, median of 3 (ms): " + "; ".join(
+        f"{k} {statistics.median(v):.4f}" for k, v in steps.items()))
+    # find_matches on the device, stage by stage (each synchronised)
+    stages: dict[str, list[float]] = {}
+    for _ in range(3):
+        t = {}
+        for name, fn in (
+                ("run_matchlens", lambda: runs.run_matchlens(chunks, disps)),
+                ("hash keys", lambda: t.update(
+                    k=match.hash_keys(chunks, MATCH.hash_bits, 12))),
+                ("sort_rows (hash key)", lambda: t.update(
+                    s=sort.sort_rows((t["k"],))[0] & (U - 1))),
+                ("word gathers", lambda: match.sorted_words(
+                    match.le_words(chunks), t["s"], nwords)),
+                ("hash_best_match whole", lambda: t.update(
+                    h=match.hash_best_match(
+                        chunks, U, MATCH.hash_bits, MATCH.num_candidates,
+                        MATCH.cap, pos_bits=12))),
+                ("extend_saturated", lambda: match.extend_saturated(
+                    *t["h"], MATCH.cap, U)),
+                ("find_matches whole", lambda: lz.find_matches(chunks, clen))):
+            stages.setdefault(name, []).extend(cuda_ms(fn, reps=1, warmup=0))
+        del t
+    print("find_matches stages, CUDA events, median of 3 (ms): " + "; ".join(
+        f"{k} {statistics.median(v):.4f}" for k, v in stages.items()))
+    profile_device("compress", lambda: tpucomp_torch.compress("lznt1", data))
+    return {k: one_launches[k] + batch_launches[k] for k in wrappers}
+
+
 def main() -> None:
     import torch
 
@@ -574,11 +832,11 @@ def main() -> None:
         plain_ms = statistics.median(cuda_ms(lambda: ref(*args), reps=3))
         print(f"{name}: equal to plain; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"tpucomp_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms})
+        # the parse reads each payload as far as its plen
+        moved = (nbytes(*args[1:]) + int(plen.sum()) if name == "lznt1_parse"
+                 else nbytes(*args))
+        kernels.append(kernel_entry(name, replaces, max_err, ms, plain_ms,
+                                    moved + nbytes(*got)))
     fill_ms = statistics.median(cuda_ms(
         lambda: common.fill_records_delta(parsed[0], parsed[1], lz.CHUNK),
         reps=5))
@@ -657,6 +915,12 @@ def main() -> None:
     xh_launches = xh_phases(dev, units, native, kernels)
     for k in kernels:
         k["launches"] = k.get("launches", 0) + xh_launches.get(k["name"], 0)
+
+    # ---- 7-8. LZNT1 encode --------------------------------------------------
+    enc_launches = encode_phases(dev, data, native, stream, kernels)
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + enc_launches.get(k["name"], 0)
+    require(len(kernels) == 10, f"{len(kernels)} kernels in the line, not 10")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

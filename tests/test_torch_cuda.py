@@ -15,11 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+import tpucomp_torch
 from chip_smoke import Native
 from tpucomp_torch.codecs import lznt1 as lz
 from tpucomp_torch.codecs import xpress_huff as xh
-from tpucomp_torch.kernels import common, fill, gather, lznt1_parse, resolve
-from tpucomp_torch.kernels import xh_parse
+from tpucomp_torch.kernels import commit, common, fill, gather, lznt1_parse
+from tpucomp_torch.kernels import match, resolve, runs, sort, xh_parse
 
 pytestmark = pytest.mark.cuda
 
@@ -224,3 +225,117 @@ def test_xh_decode_batch_on_card_matches_cpu(fast_resolve, dev):
     out = got[0].cpu().numpy()
     for k, u in enumerate(units):
         assert out[k, :len(u)].tobytes() == u
+
+
+def _byte_rows(U, seed):
+    """Zeros, runs of periods 1-3 with breaks, random bytes, a short chunk
+    in zero padding, and slowly varying text-like bytes."""
+    r = np.random.default_rng(seed)
+    x = np.zeros((7, U), np.uint8)
+    x[1] = 5
+    x[1, r.integers(0, U, 3)] = 6
+    x[2] = np.tile([1, 2], U)[:U]
+    x[3] = np.tile([7, 8, 9], U)[:U]
+    x[4] = r.integers(0, 256, U)
+    x[5, :37] = r.integers(0, 4, 37)
+    x[6] = r.integers(0, 3, U)
+    return x
+
+
+@pytest.mark.parametrize("U", [512, 4096, 5000, 65536])
+def test_run_matchlens_kernel_matches_plain(U, dev):
+    xs = torch.from_numpy(_byte_rows(U, U)).to(dev)
+    disps = (1, 2, 3, 7, 300)  # two launches: 4 displacements each at most
+    before = runs.run_matchlens.launches
+    got = runs.run_matchlens(xs, disps)
+    assert runs.run_matchlens.launches == before + 2
+    _assert_equal(got, runs.run_matchlens_ref(xs, disps))
+
+
+@pytest.mark.parametrize("U", [256, 512, 4096, 16384])
+def test_sort_rows_kernel_matches_plain(U, dev):
+    r = np.random.default_rng(U)
+    N = 6
+    key = np.stack([r.permutation(U) for _ in range(N)]).astype(np.int32)
+    key[1] = r.choice(np.arange(-(1 << 30), 1 << 30, 7919), U, replace=False)
+    key[2] = np.arange(U)[::-1]  # reversed
+    key[3] = np.arange(U)  # already sorted
+    planes = [torch.from_numpy(key).to(dev)] + [
+        torch.from_numpy(r.integers(-(1 << 31), 1 << 31, (N, U))
+                         .astype(np.int32)).to(dev) for _ in range(8)]
+    for P in (1, 2, 9):
+        _assert_equal(sort.sort_rows(planes[:P]),
+                      sort.sort_rows_ref(planes[:P]))
+
+
+def test_sort_rows_kernel_many_planes_and_refusals(dev):
+    r = np.random.default_rng(17)
+    key = torch.from_numpy(np.stack([r.permutation(1024) for _ in range(3)])
+                           .astype(np.int32)).to(dev)
+    planes = [key] + [key * k for k in range(1, 20)]  # 19 payload planes
+    before = sort.sort_rows.launches
+    _assert_equal(sort.sort_rows(planes), sort.sort_rows_ref(planes))
+    assert sort.sort_rows.launches == before + 2
+    with pytest.raises(ValueError, match="power of two"):
+        sort.sort_rows((key[:, :1000].contiguous(),))
+    with pytest.raises(ValueError, match="contiguous"):
+        sort.sort_rows((key[:, ::2],))
+
+
+@pytest.mark.parametrize("N,n", [(70, 4096), (33, 1000), (1, 129)])
+def test_greedy_commit_kernel_matches_plain(N, n, dev):
+    r = np.random.default_rng(N * n)
+    is_match = r.random((N, n)) < 0.4
+    is_match[0] = False  # a row with no match
+    best_len = r.integers(1, 90, (N, n)).astype(np.int32)
+    okpos = np.ones((N, n), bool)
+    okpos[-1, n // 3:] = False  # a short chunk
+    args = [torch.from_numpy(a).to(dev) for a in (is_match, best_len, okpos)]
+    before = (commit.greedy_commit.launches,
+              commit.greedy_commit_layout.launches)
+    _assert_equal([commit.greedy_commit(*args)],
+                  [commit.greedy_commit_ref(*args)])
+    _assert_equal(commit.greedy_commit_layout(*args),
+                  commit.greedy_commit_ref(*args, layout=True))
+    assert (commit.greedy_commit.launches,
+            commit.greedy_commit_layout.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+
+
+def test_hash_best_match_on_card_matches_cpu(dev):
+    x = np.concatenate([_byte_rows(4096, 3), _byte_rows(4096, 4)])
+    x[7:, 1000:3000] = np.tile(x[4, :100], 20)  # long repeats: saturation
+    xs = torch.from_numpy(x)
+    for seed, max_disp in ((3, None), (5, 900)):
+        kw = dict(hash_bits=13, num_cands=3, cap=32, seed=seed,
+                  max_disp=max_disp)
+        got = match.hash_best_match(xs.to(dev), 4096, **kw)
+        want = match.hash_best_match(xs, 4096, **kw)
+        _assert_equal(got, want)
+
+
+def _encode_inputs():
+    r = np.random.default_rng(21)
+    words = [b"alpha ", b"beta ", b"gamma ", b"delta ", b"pi "]
+    text = b"".join(words[i] for i in r.integers(0, len(words), 6000))
+    return (text[:20000] + r.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+            + bytes(9000) + (b"abc" * 3000) + text[:777])
+
+
+def test_encode_batch_on_card_matches_cpu(dev):
+    chunks, clen = lz.split_chunks(_encode_inputs())
+    args = torch.from_numpy(chunks), torch.from_numpy(clen)
+    got = lz.encode_batch(*(t.to(dev) for t in args))
+    _assert_equal(got, lz.encode_batch(*args))
+
+
+def test_compress_on_card_matches_cpu_and_round_trips(dev):
+    data = _encode_inputs()
+    stream = tpucomp_torch.compress("lznt1", data)
+    assert stream == tpucomp_torch.compress("lznt1", data, device="cpu")
+    assert tpucomp_torch.decompress("lznt1", stream) == data
+    assert Native().lznt1_decompress(stream, len(data)) == data
+    units = [data[i:i + 4096] for i in range(0, len(data), 4096)] + [b"", b"x"]
+    got = tpucomp_torch.compress_batch("lznt1", units)
+    assert got == tpucomp_torch.compress_batch("lznt1", units, device="cpu")
+    assert tpucomp_torch.decompress_batch("lznt1", got) == units

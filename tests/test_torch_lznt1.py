@@ -150,9 +150,12 @@ def test_decompress_batch_matches_tpucomp():
 @pytest.mark.parametrize("fmt", ["xpress", "xpress_huff",
                                  tpucomp_torch.Format.LZX])
 def test_unported_formats_raise(fmt):
-    """Every call of an unported format raises; of XPRESS_HUFF only the
-    one-shot ``decompress`` does (its batched decode is ported)."""
-    calls = [lambda: tpucomp_torch.decompress(fmt, b"ab", 2, device="cpu")]
+    """Every call of an unported format raises; of XPRESS_HUFF all but
+    ``decompress_batch`` do (its batched decode is ported)."""
+    calls = [lambda: tpucomp_torch.decompress(fmt, b"ab", 2, device="cpu"),
+             lambda: tpucomp_torch.compress(fmt, b"ab", device="cpu"),
+             lambda: tpucomp_torch.compress_batch(fmt, [b"ab"],
+                                                  device="cpu")]
     if fmt != "xpress_huff":
         calls.append(lambda: tpucomp_torch.decompress_batch(
             fmt, [b"ab"], [2], device="cpu"))

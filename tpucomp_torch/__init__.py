@@ -5,9 +5,12 @@ package computes the same functions with PyTorch and CUDA kernels written
 by hand for Hopper (``kernels/csrc``, built by nvcc at first use into
 ``tpucomp_torch/_build/``).  It never imports JAX.
 
-Ported so far: LZNT1 decode and Xpress Huffman batched decode.
+Ported so far: LZNT1 encode and decode, and Xpress Huffman batched
+decode.
 
     import tpucomp_torch
+    stream = tpucomp_torch.compress("lznt1", data)              # on "cuda"
+    streams = tpucomp_torch.compress_batch("lznt1", units)      # <= 4 KiB each
     data = tpucomp_torch.decompress("lznt1", stream)            # on "cuda"
     data = tpucomp_torch.decompress("lznt1", stream, device="cpu")
     units = tpucomp_torch.decompress_batch("lznt1", unit_streams)
@@ -27,6 +30,12 @@ from .errors import (  # noqa: F401
     UnsupportedFormatError,
 )
 from .formats import Format  # noqa: F401
-from .api import decompress, decompress_batch  # noqa: F401
+from .api import (  # noqa: F401
+    compress,
+    compress_batch,
+    decompress,
+    decompress_batch,
+    max_compressed_size,
+)
 
 __version__ = "0.1.0"

@@ -1,10 +1,11 @@
-"""Public one-shot and batched decode calls.
+"""Public one-shot and batched calls.
 
-Counterparts of ``tpucomp.decompress(..., backend="tpu")`` and
-``tpucomp.decompress_batch``.  Every call takes a ``device``; the default
-is ``"cuda"``, and asking for CUDA where it is not available raises.
-Ported so far: LZNT1 (one-shot and batched) and Xpress Huffman's batched
-decode; any other call raises :class:`UnsupportedFormatError`.
+Counterparts of ``tpucomp.compress`` / ``decompress`` (``backend="tpu"``),
+``compress_batch``, ``decompress_batch`` and ``max_compressed_size``.
+Every call that computes takes a ``device``; the default is ``"cuda"``,
+and asking for CUDA where it is not available raises.  Ported so far:
+LZNT1 encode and decode (one-shot and batched) and Xpress Huffman's
+batched decode; any other call raises :class:`UnsupportedFormatError`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,44 @@ from .formats import Format
 def _not_ported(fmt: Format, call: str):
     return UnsupportedFormatError(
         f"{call} of format {fmt.name} is not ported to tpucomp_torch yet "
-        "(LZNT1 decode and XPRESS_HUFF decompress_batch are)")
+        "(LZNT1 compress, compress_batch, decompress and decompress_batch, "
+        "and XPRESS_HUFF decompress_batch are)")
+
+
+def compress(fmt, data: bytes, *, device="cuda") -> bytes:
+    """One-shot compress of ``data`` on ``device``: the same stream as
+    ``tpucomp.compress(fmt, data, backend="tpu")``."""
+    if data is None:
+        raise ArgError("data must be bytes-like")
+    fmt = formats.canonical(fmt)
+    if fmt != Format.LZNT1:
+        raise _not_ported(fmt, "compress")
+    return lznt1.compress(data, device=device)
+
+
+def compress_batch(fmt, units, *, unit_size: Optional[int] = None,
+                   device="cuda") -> list:
+    """Compress independent units in one device batch: one stream per
+    unit, as ``tpucomp.compress_batch``.
+
+    LZNT1: a unit is one chunk of at most 4096 bytes (a longer one raises
+    :class:`ArgError`); an empty unit gives ``b""``.  ``unit_size`` is
+    accepted for parity with tpucomp and not used.
+    """
+    fmt = formats.canonical(fmt)
+    if fmt != Format.LZNT1:
+        raise _not_ported(fmt, "compress_batch")
+    return lznt1.compress_units(list(units), device=device)
+
+
+def max_compressed_size(fmt, n: int) -> int:
+    """Worst-case compressed size of ``n`` bytes, as tpucomp's."""
+    if n < 0:
+        raise ArgError("n must be non-negative")
+    fmt = formats.canonical(fmt)
+    if fmt != Format.LZNT1:
+        raise _not_ported(fmt, "max_compressed_size")
+    return lznt1.max_compressed_size(n)
 
 
 def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,

@@ -1,7 +1,7 @@
-"""LZNT1 decode, chunk-parallel, on PyTorch tensors.
+"""LZNT1 encode and decode, chunk-parallel, on PyTorch tensors.
 
-Counterpart of the decode half of ``tpucomp/codecs/lznt1.py``.  One row
-of a batch is one 4 KiB chunk.  The pipeline:
+Counterpart of ``tpucomp/codecs/lznt1.py``.  One row of a batch is one
+4 KiB chunk.  The decode pipeline:
 
   parse (kernel)  -> token records per payload byte step
   fill            -> per output byte: its token's literal or displacement
@@ -11,17 +11,34 @@ of a batch is one 4 KiB chunk.  The pipeline:
                      (``common.far_rounds`` at U = 4096: one level)
 
 Stored-raw chunks bypass the pipeline: their payload is the output.
+
+The encode pipeline (:func:`encode_batch`), whose payloads equal
+tpucomp's byte for byte at the same ``MatchFinderConfig``:
+
+  run matcher (kernel) -> exact run lengths at displacements 1, 2, 3
+  hash match finder    -> row sort (kernel) of the chain keys, capped
+                          word compares, un-sort (the same kernel)
+  extend_saturated     -> exact lengths of the cap-saturated matches
+  lazy step, greedy commit walk with layout sums (kernel)
+  byte assembly        -> direct scatters of tokens and flag bytes
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..config import DEFAULT, MatchFinderConfig
 from ..errors import ArgError, DataError
-from ..kernels.common import far_rounds, fill_records_delta
+from ..kernels.commit import greedy_commit_layout
+from ..kernels.common import (far_rounds, fill_records_delta, place_monotone,
+                              scatter_sorted_or)
 from ..kernels.lznt1_parse import COPY_BIT, lznt1_parse
+from ..kernels.match import extend_saturated, hash_best_match
 from ..kernels.resolve import SEG, resolve_near
+from ..kernels.runs import run_matchlens
 from ..util import resolve_device
 
 CHUNK = 4096
@@ -181,3 +198,235 @@ def decompress_units(streams, *, device="cuda") -> list:
     for k, i in enumerate(owner):
         parts[i].append(flat[ends[k - 1] if k else 0: ends[k]])
     return [b"".join(p) for p in parts]
+
+
+# --------------------------------------------------------------------------
+# Encode
+# --------------------------------------------------------------------------
+
+MIN_MATCH = 3
+
+
+def _split_tables():
+    """Per output position p: the largest ``length - 3`` a copy token can
+    hold there, and its displacement shift (``12 - max(bitlen(p - 1) - 4,
+    0)``), tpucomp's ``L_MASK_TABLE`` and ``D_SHIFT_TABLE``."""
+    q = np.maximum(np.arange(CHUNK) - 1, 0)
+    bitlen = np.zeros(CHUNK, np.int32)
+    for b in range(13):
+        bitlen[q >= (1 << b)] = b + 1
+    shifts = np.maximum(bitlen - 4, 0)
+    return (((1 << (12 - shifts)) - 1).astype(np.int32),
+            (12 - shifts).astype(np.int32))
+
+
+L_MASK_TABLE, D_SHIFT_TABLE = _split_tables()
+
+
+@functools.lru_cache(maxsize=None)
+def _split_tables_on(dev: torch.device):
+    """The two tables as [1, CHUNK] int32 tensors on ``dev``, copied once."""
+    return tuple(torch.from_numpy(t).to(dev)[None, :]
+                 for t in (L_MASK_TABLE, D_SHIFT_TABLE))
+
+
+def encode_batch(chunks: torch.Tensor, clen: torch.Tensor,
+                 match: MatchFinderConfig | None = None):
+    """Encode a batch of chunks of at most 4096 bytes into LZNT1 token
+    payloads (headers not included): :func:`find_matches`, the greedy
+    walk (:func:`~tpucomp_torch.kernels.commit.greedy_commit_layout`),
+    then :func:`assemble_payload`.
+
+    Args (on one device):
+      chunks: uint8 [N, CHUNK], chunk bytes, zero-padded (tpucomp takes
+              int32; the values are equal).
+      clen:   int32 [N], true chunk length.
+      match:  the match finder's parameters; :data:`config.DEFAULT` when
+              None.
+
+    Returns:
+      payload: uint8 [N, MAX_PAYLOAD] token and flag bytes, 0 past plen
+      plen:    int32 [N] payload length, 0 for an empty chunk (the caller
+               stores a chunk raw when ``plen >= clen``)
+    """
+    best_len, best_disp, use_match, okpos = find_matches(chunks, clen, match)
+    walk = greedy_commit_layout(use_match, best_len, okpos)
+    return assemble_payload(chunks, best_len, best_disp, use_match, *walk)
+
+
+def find_matches(chunks: torch.Tensor, clen: torch.Tensor,
+                 match: MatchFinderConfig | None = None):
+    """Match finding and the lazy step of :func:`encode_batch`.
+
+    Returns ``best_len`` and ``best_disp`` (int32 [N, CHUNK], the lengths
+    clipped to the format's and the chunk's limits), ``use_match`` (bool:
+    a match the walk takes where it stands) and ``okpos`` (bool: inside
+    the chunk), the walk's inputs.
+    """
+    match = DEFAULT if match is None else match
+    N, n = chunks.shape
+    if chunks.dtype != torch.uint8 or n != CHUNK:
+        raise ValueError(f"chunks must be a uint8 [N, {CHUNK}] tensor")
+    if clen.dtype != torch.int32 or tuple(clen.shape) != (N,):
+        raise ValueError("clen must be an int32 [N] tensor")
+    dev = chunks.device
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    in_len = clen[:, None]
+    l_mask, _ = _split_tables_on(dev)
+
+    # candidate scoring: runs for each d, then the hash match; a later
+    # candidate wins only with a strictly longer length
+    best_len = torch.zeros((N, n), dtype=torch.int32, device=dev)
+    best_disp = torch.ones((N, n), dtype=torch.int32, device=dev)
+
+    def consider(length, disp, cond):
+        nonlocal best_len, best_disp
+        better = cond & (length > best_len)
+        best_len = torch.where(better, length, best_len)
+        best_disp = torch.where(better, disp, best_disp)
+
+    run_disps = tuple(match.run_disps)
+    for d, ml in zip(run_disps, run_matchlens(chunks, run_disps)):
+        consider(ml, d, ml >= MIN_MATCH)
+    hl, hd = hash_best_match(chunks, n, pos_bits=12,
+                             hash_bits=match.hash_bits,
+                             num_cands=match.num_candidates, cap=match.cap)
+    hl = extend_saturated(hl, hd, match.cap, n)
+    consider(hl, hd, hl >= MIN_MATCH)
+
+    # clip to the format's and the chunk's limits
+    best_len = torch.minimum(best_len,
+                             torch.minimum(l_mask + MIN_MATCH, in_len - pos))
+    is_match = (best_len >= MIN_MATCH) & (pos + MIN_MATCH <= in_len)
+    # lazy step: defer a match when the next position has a strictly
+    # longer one
+    next_bl = torch.zeros_like(best_len)
+    next_bl[:, :-1] = best_len[:, 1:]
+    use_match = is_match & ~(next_bl > best_len)
+    okpos = (pos < in_len).expand(N, n).contiguous()
+    return best_len, best_disp, use_match, okpos
+
+
+def assemble_payload(chunks, best_len, best_disp, use_match, committed,
+                     t_after, data_before):
+    """The byte assembly of :func:`encode_batch`, from the walk's output.
+
+    Committed position p is token t = t_after[p] - 1 of group t >> 3; its
+    first byte sits at (t >> 3) + 1 + data_before[p] (one flag byte per
+    started group precedes the group's data).  Every payload byte is
+    written once, so each plane is one scatter.  Returns (payload, plen).
+    """
+    N, n = chunks.shape
+    dev = chunks.device
+    _, d_shift = _split_tables_on(dev)
+    T_total = t_after[:, -1]
+    last_c = committed[:, -1].int()
+    data_total = (data_before[:, -1] + last_c
+                  + last_c * use_match[:, -1].int())
+    t_idx = t_after - 1
+    grp_p = t_idx >> 3
+    off_p = grp_p + 1 + data_before
+    iscp_p = committed & use_match
+    tokv = ((best_disp - 1) << d_shift) | (best_len - MIN_MATCH)
+    b0 = torch.where(iscp_p, tokv & 0xFF, chunks.int())
+    NG = n // 8
+    fval = scatter_sorted_or(
+        grp_p, torch.where(iscp_p, 1 << (t_idx & 7), 0), NG)
+    # each group's flag byte goes just before its first token (+1 so that
+    # a real offset 0 survives; 0 means "no such group")
+    fpos1 = place_monotone(~(committed & ((t_idx & 7) == 0)), grp_p, off_p,
+                           NG)
+    ngroups = (T_total + 7) >> 3
+    grp_exists = torch.arange(NG, device=dev)[None, :] < ngroups[:, None]
+    d_b0, d_hi = place_monotone(
+        ~committed, off_p,
+        (torch.where(committed, b0, 0), torch.where(iscp_p, tokv >> 8, 0)),
+        MAX_PAYLOAD)
+    d_fl = place_monotone(~grp_exists, fpos1 - 1,
+                          torch.where(grp_exists, fval, 0), MAX_PAYLOAD)
+    # a copy's high byte follows its low byte (the last column wraps to
+    # the first, as tpucomp's roll does)
+    val = d_b0 | d_hi.roll(1, 1) | d_fl
+    plen = torch.where(T_total > 0, ngroups + data_total, 0).to(torch.int32)
+    bq = torch.arange(MAX_PAYLOAD, device=dev)[None, :]
+    payload = torch.where(bq < plen[:, None], val, 0).to(torch.uint8)
+    return payload, plen
+
+
+def split_chunks(data: bytes):
+    """The 4 KiB chunks of ``data`` as numpy uint8 [N, CHUNK] rows
+    (zero-padded) and their int32 [N] lengths."""
+    arr = np.frombuffer(data, np.uint8)
+    N = -(-len(arr) // CHUNK)
+    chunks = np.zeros((N, CHUNK), np.uint8)
+    chunks.reshape(-1)[:len(arr)] = arr
+    clen = np.minimum(len(arr) - np.arange(N) * CHUNK, CHUNK).astype(np.int32)
+    return chunks, clen
+
+
+def frame_chunks(payload: np.ndarray, plen: np.ndarray, chunks: np.ndarray,
+                 clen: np.ndarray) -> list:
+    """Each chunk's header and body, as tpucomp writes them: compressed
+    (``0xB000 | plen - 1``, then the payload) when ``plen < clen``, else
+    stored raw (``0x3000 | clen - 1``, then the chunk)."""
+    out = []
+    for k in range(len(clen)):
+        pl, cl = int(plen[k]), int(clen[k])
+        if pl < cl:
+            out.append((0xB000 | (pl - 1)).to_bytes(2, "little")
+                       + payload[k, :pl].tobytes())
+        else:
+            out.append((0x3000 | (cl - 1)).to_bytes(2, "little")
+                       + chunks[k, :cl].tobytes())
+    return out
+
+
+def _encode_framed(chunks: np.ndarray, clen: np.ndarray, dev) -> list:
+    payload, plen = encode_batch(torch.from_numpy(chunks).to(dev),
+                                 torch.from_numpy(clen).to(dev))
+    return frame_chunks(payload.cpu().numpy(), plen.cpu().numpy(), chunks,
+                        clen)
+
+
+def compress(data: bytes, *, device="cuda") -> bytes:
+    """One-shot LZNT1 encode on ``device`` (chunk-parallel, stored-raw
+    fallback), equal to tpucomp's ``compress`` at its default config."""
+    dev = resolve_device(device)
+    data = bytes(data)
+    if not data:
+        return b""
+    return b"".join(_encode_framed(*split_chunks(data), dev))
+
+
+def compress_units(units, *, device="cuda") -> list:
+    """Encode independent units of at most 4096 bytes in one batch, one
+    chunk (and one stream) per unit, as tpucomp's ``compress_batch``.
+
+    An empty unit gives ``b""`` (tpucomp raises ``OverflowError`` on its
+    header); a unit longer than 4096 bytes raises :class:`ArgError`.
+    """
+    dev = resolve_device(device)
+    units = [bytes(u) for u in units]
+    for i, u in enumerate(units):
+        if len(u) > CHUNK:
+            raise ArgError(f"LZNT1: unit {i} has {len(u)} bytes; a unit is "
+                           f"one chunk of at most {CHUNK}")
+    full = [i for i, u in enumerate(units) if u]
+    out = [b""] * len(units)
+    if not full:
+        return out
+    chunks = np.zeros((len(full), CHUNK), np.uint8)
+    clen = np.zeros(len(full), np.int32)
+    for k, i in enumerate(full):
+        chunks[k, :len(units[i])] = np.frombuffer(units[i], np.uint8)
+        clen[k] = len(units[i])
+    for i, framed in zip(full, _encode_framed(chunks, clen, dev)):
+        out[i] = framed
+    return out
+
+
+def max_compressed_size(n: int) -> int:
+    """Worst-case LZNT1 stream size for ``n`` input bytes: every chunk
+    stored raw behind its 2-byte header, plus a 2-byte terminator."""
+    nchunks = (n + CHUNK - 1) // CHUNK
+    return n + 2 * max(nchunks, 1) + 2

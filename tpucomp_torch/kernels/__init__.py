@@ -1,5 +1,6 @@
 """Kernels of the port.  Each of ``lznt1_parse``, ``xh_parse``, ``fill``,
-``resolve`` and ``gather`` holds wrappers that launch a CUDA kernel
-(``csrc/*.cu``) on CUDA tensors and run the plain PyTorch version beside
-it on CPU tensors; each wrapper counts its launches in
-``<wrapper>.launches``.  ``huffman`` and ``common`` are plain PyTorch."""
+``resolve``, ``gather``, ``runs``, ``sort`` and ``commit`` holds wrappers
+that launch a CUDA kernel (``csrc/*.cu``) on CUDA tensors and run the
+plain PyTorch version beside it on CPU tensors; each wrapper counts its
+launches in ``<wrapper>.launches``.  ``huffman``, ``match`` (around the
+``sort`` kernel) and ``common`` are plain PyTorch."""

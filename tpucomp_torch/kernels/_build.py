@@ -133,25 +133,32 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     return kind == "cuda"
 
 
-def launch(name: str, tensors: list[torch.Tensor], ints: list[int]) -> None:
+def launch(name: str, tensors: list[torch.Tensor], ints: list[int],
+           tables: tuple = ()) -> None:
     """Launch the library's entry point ``name`` on PyTorch's current
     stream of the tensors' device; raise if the launch failed.
 
-    Every entry point takes the tensors' device pointers, then ``ints``
-    as C ints, then the stream, and returns ``cudaGetLastError()``.  The
-    library is built and loaded on first use.
+    Every entry point takes the tensors' device pointers, then one host
+    array of device pointers for each list of tensors in ``tables`` (the
+    entry point copies it into the kernel's parameters before it
+    returns), then ``ints`` as C ints, then the stream, and returns
+    ``cudaGetLastError()``.  The library is built and loaded on first use.
     """
     global _lib
     if _lib is None:
         _lib = ctypes.CDLL(build()[0])
     fn = getattr(_lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * len(tensors)
+    fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + len(tables))
                    + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    arrays = [(ctypes.c_void_p * max(1, len(tab)))(
+        *[t.data_ptr() for t in tab]) for tab in tables]
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+        rc = fn(*[t.data_ptr() for t in tensors],
+                *[ctypes.cast(a, ctypes.c_void_p) for a in arrays], *ints,
+                stream)
     if rc != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError_t {rc}")

@@ -1,7 +1,8 @@
-"""Shared pieces of ``tpucomp.kernels.common`` that the port's decoders use.
+"""Shared pieces of ``tpucomp.kernels.common`` that the port's codecs use.
 
-``fill_records_delta`` is XLA in tpucomp, not Pallas, so it stays plain
-PyTorch here.  :func:`far_rounds` is tpucomp's ``_far_rounds``: the far
+``fill_records_delta``, ``place_monotone`` and ``scatter_sorted_or`` are
+XLA in tpucomp, not Pallas, so they stay plain PyTorch here (the last two
+as direct scatters).  :func:`far_rounds` is tpucomp's ``_far_rounds``: the far
 levels that resolve the tags the near walk leaves, each a CUDA kernel of
 :mod:`tpucomp_torch.kernels.gather`.
 """
@@ -54,6 +55,49 @@ def far_rounds(out: torch.Tensor, U: int, min_hop: int,
     if U <= MAX_SEG:
         return far_level(out)
     return far_row(out)
+
+
+def place_monotone(empty: torch.Tensor, keys: torch.Tensor, vals,
+                   U: int):
+    """Dense placement of sorted records: ``out[n, k]`` = the value of the
+    entry whose key is k, 0 where there is none.  Keys strictly increase
+    along a row among the entries that are not ``empty``; keys outside
+    [0, U) count as empty.  ``vals`` is a tensor or a tuple of tensors
+    shaped as ``keys``.
+
+    tpucomp's ``place_monotone`` reaches this with log-depth compaction
+    and expansion passes because the TPU has no scatter; here it is one
+    scatter per plane, into a spare column U for the empty entries.
+    """
+    single = not isinstance(vals, (tuple, list))
+    vs = (vals,) if single else tuple(vals)
+    N = keys.shape[0]
+    real = ~empty & (keys >= 0) & (keys < U)
+    target = torch.where(real, keys, U).long()
+    out = []
+    for v in vs:
+        o = torch.zeros((N, U + 1), dtype=v.dtype, device=v.device)
+        o.scatter_(1, target, torch.where(real, v, 0))
+        out.append(o[:, :U])
+    return out[0] if single else tuple(out)
+
+
+def scatter_sorted_or(keys: torch.Tensor, vals: torch.Tensor,
+                      U: int) -> torch.Tensor:
+    """``out[n, u]`` = the OR of ``vals`` over the entries whose key is u,
+    0 where there is none; keys outside [0, U) are dropped.
+
+    The values of one key must share no bit (zero placeholders are
+    harmless), as the encoders' group flag bits do: then the OR is the
+    sum, and one ``scatter_add_`` computes it.  tpucomp's form is a
+    segmented scan plus :func:`place_monotone` over non-decreasing keys.
+    """
+    N = keys.shape[0]
+    real = (keys >= 0) & (keys < U)
+    out = torch.zeros((N, U + 1), dtype=vals.dtype, device=vals.device)
+    out.scatter_add_(1, torch.where(real, keys, U).long(),
+                     torch.where(real, vals, 0))
+    return out[:, :U]
 
 
 def fill_records_delta(rec_pos: torch.Tensor, rec_val: torch.Tensor,
