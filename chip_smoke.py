@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tpucomp_torch on one NVIDIA GPU: LZNT1 decode, Xpress
-Huffman (XH) batched decode and LZNT1 encode end to end.
+Huffman (XH) batched decode, LZNT1 encode and plain Xpress unit decode
+and encode end to end.
 
     python3 chip_smoke.py
 
@@ -56,6 +57,28 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    and ``compress_batch``, the median of 5; ``compress`` step by step;
    ``find_matches`` stage by stage; peak memory; one ``compress`` under
    the profiler.
+9. Xpress kernel vs plain: the corpus's 512 units of 64 KiB, one of
+   seeded random bytes and one of zeros, each encoded by the native C
+   Xpress encoder, plus 32 seeded malformed rows, in one batch.  The
+   parse against its plain version on a sub-batch of short rows (the
+   shortest corpus streams and the malformed rows: the plain version
+   loops once per payload byte), and on the whole batch the decode tail's
+   kernels (fill, near walk, 4 KiB level, row level); then the encode
+   kernels at [514, 65536]: the run matcher, the row sort of the hash key
+   and of the un-sort (beside ``torch.sort`` + ``gather``) and the greedy
+   walk, each against its plain version, with their times.
+10. Xpress main path, with every launch count set to 0 first:
+   ``decompress_batch("xpress", ...)`` of the 514 streams, equal to the
+   units (16 sampled also to the native C decoder);
+   ``compress_batch("xpress", ...)`` of the units, equal to
+   ``compress_batch(..., device="cpu")`` (the plain versions on the
+   host) and decoding back through the port and the native C decoder; a
+   one-shot ``compress`` / ``decompress`` round trip of 50,000 bytes; a
+   corrupt unit must raise ``DataError``; every kernel of the slice must
+   have launched.  Then the ratio beside the native C encoder's; GB/s of
+   ``decode_batch`` and ``encode_batch`` (resident), ``decompress_batch``
+   and ``compress_batch``, the median of 5; the stages; peak memory; one
+   ``decompress_batch`` and one ``compress_batch`` under the profiler.
 
 The last two lines are JSON: the kernels, and ``{"ok": true, "device":
 ...}``.  The script exits nonzero, printing neither, when CUDA is absent.
@@ -85,6 +108,8 @@ UNIT = 64 << 10  # NTFS's LZNT1 compression unit
 N_MALFORMED = 256
 N_XH_MALFORMED = 32
 XH_SUB_SHORTEST = 32  # corpus streams in the plain parse's sub-batch
+N_XP_MALFORMED = 32
+XP_SUB_SHORTEST = 32
 
 
 # H100 SXM device memory rate (NVIDIA's data sheet): every kernel here is
@@ -146,8 +171,8 @@ def clock(steps: dict, name: str, fn):
 
 class Native:
     """The repo's native C codec (tpucomp/native), built with the host C
-    compiler into the port's build directory and bound by ctypes: LZNT1
-    and Xpress Huffman encode and decode."""
+    compiler into the port's build directory and bound by ctypes: LZNT1,
+    plain Xpress and Xpress Huffman encode and decode."""
 
     OPT_RESOLVE_OFFSETS = 1  # tpucomp_native.c OPT_*
 
@@ -161,6 +186,7 @@ class Native:
                                             [src], "tpucomp_native")
         self.lib = lib = ctypes.CDLL(lib_path)
         for fn in (lib.lznt1_compress, lib.lznt1_decompress,
+                   lib.xpress_compress, lib.xpress_decompress,
                    lib.xh_compress, lib.xh_decompress):
             fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
                            ctypes.c_int]
@@ -183,6 +209,13 @@ class Native:
 
     def lznt1_decompress(self, data: bytes, out_len: int) -> bytes:
         return self._call(self.lib.lznt1_decompress, data, out_len)
+
+    def xpress_compress(self, data: bytes) -> bytes:
+        bound = len(data) + 4 * ((len(data) + 31) // 32) + 16
+        return self._call(self.lib.xpress_compress, data, bound)
+
+    def xpress_decompress(self, data: bytes, out_len: int) -> bytes:
+        return self._call(self.lib.xpress_decompress, data, out_len)
 
     @staticmethod
     def _xh_bound(n: int) -> int:
@@ -749,6 +782,308 @@ def encode_phases(dev, data: bytes, native, native_stream: bytes,
     return {k: one_launches[k] + batch_launches[k] for k in wrappers}
 
 
+def xp_malformed(native, units, streams, idx, rng):
+    """N_XP_MALFORMED seeded malformed (stream, out_len) rows made from the
+    units ``idx``: streams cut short, flipped bits, a first token that
+    copies from before the start, an out_len past the content, short
+    random bytes, and a u32 escape length that wraps int32."""
+    wrap = bytes([0xFF, 0xFF, 0xFF, 0x4F, 7, 7, 0, 0x0F, 0xFF, 0, 0,
+                  0xFD, 0xFF, 0xFF, 0x7F, 8, 9])
+    rows = []
+    for k in range(N_XP_MALFORMED):
+        i = idx[k % len(idx)]
+        s, n = streams[i], len(units[i])
+        kind = k % 6
+        if kind == 0:
+            rows.append((s[:int(rng.integers(5, len(s) // 2))], n))
+        elif kind == 1:
+            b = bytearray(s)
+            for pos in rng.integers(4, len(s), 3).tolist():
+                b[pos] ^= 1 << int(rng.integers(8))
+            rows.append((bytes(b), n))
+        elif kind == 2:
+            rows.append((s[:3] + bytes([s[3] | 0x80, 8, 0]) + s[6:], n))
+        elif kind == 3:
+            rows.append((native.xpress_compress(units[i][:n // 2]), n))
+        elif kind == 4:
+            rows.append((rng.integers(0, 256, 300, dtype=np.uint8).tobytes(),
+                         n))
+        else:
+            rows.append((wrap, 4))
+    return rows
+
+
+def xpress_phases(dev, units, native, kernels) -> dict:
+    """Phases 9 and 10, plain Xpress.  Adds the parse's entry to
+    ``kernels`` (and the Xpress comparisons of the other kernels to
+    theirs) and returns the launches of every kernel on the Xpress main
+    path."""
+    import torch
+
+    import tpucomp_torch
+    from tpucomp_torch.codecs import xpress as xp
+    from tpucomp_torch.codecs.xpress_huff import near_inputs
+    from tpucomp_torch.config import DEFAULT as MATCH
+    from tpucomp_torch.kernels import (commit, fill, gather, match, resolve,
+                                       runs, sort, xp_parse)
+    from tpucomp_torch.kernels.common import SEG_LEVEL, SEG_LEVEL_CAP
+
+    rng = np.random.default_rng(SEED + 3)
+    units = list(units) + [
+        rng.integers(0, 256, UNIT, dtype=np.uint8).tobytes(), bytes(UNIT)]
+    t0 = time.perf_counter()
+    streams = [native.xpress_compress(u) for u in units]
+    lens = [len(u) for u in units]
+    total = sum(lens)
+    sizes = sorted(len(x) for x in streams)
+    print(f"xpress: {len(units)} units of {UNIT} bytes (the corpus's "
+          f"{len(units) - 2}, one of seeded random bytes, one of zeros) "
+          f"encode to {sum(sizes)} bytes by the native C encoder (ratio "
+          f"{sum(sizes) / total}), streams {sizes[0]} to {sizes[-1]} bytes "
+          f"(median {sizes[len(sizes) // 2]}), "
+          f"{time.perf_counter() - t0:.2f} s to encode")
+
+    def entry(name, fn, ref, args, reps=10, plain_reps=3, extra=""):
+        """Hold ``fn`` to ``ref`` on ``args``; print both times and the
+        bound (the tensors of ``args`` read once, the outputs written
+        once); fold the comparison into the kernel's existing entry
+        (which keeps the times of its first slice)."""
+        got = fn(*args)
+        max_err = compare(name, got, ref(*args))
+        ms = statistics.median(cuda_ms(lambda: fn(*args), reps=reps))
+        plain_ms = statistics.median(cuda_ms(lambda: ref(*args),
+                                             reps=plain_reps))
+        ins = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
+               if isinstance(t, torch.Tensor)]
+        outs = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+        print(f"{name} (Xpress shape {list(ins[0].shape)}): equal to plain; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{nbytes(*ins, *outs) / HBM_BYTES_PER_S * 1e3:.4f} ms{extra}")
+        k = next(k for k in kernels if k["name"] == name.split(" ")[0])
+        k["max_abs_err"] = max(k["max_abs_err"], max_err)
+        return got
+
+    # ---- 9. kernel vs plain: decode -------------------------------------------
+    n_corpus = len(units) - 2
+    shortest = sorted(range(n_corpus), key=lambda i: len(streams[i]))[
+        :XP_SUB_SHORTEST]
+    bad = xp_malformed(native, units, streams, shortest, rng)
+    rows = list(zip(streams, lens)) + bad
+    batch = xp.pack_units([r[0] for r in rows], [r[1] for r in rows], UNIT,
+                          dev)
+    N, P = batch[0].shape
+    print(f"xpress kernel vs plain at N={N} ({N_XP_MALFORMED} malformed "
+          f"rows), payload width {P}")
+    parsed = xp_parse.xp_parse(*batch, UNIT)
+    sub = torch.tensor(shortest + list(range(len(units), N)), device=dev)
+    sub_args = tuple(a[sub] for a in batch)
+    ref_out = []
+    parse_plain_ms, = cuda_ms(lambda: ref_out.append(
+        xp_parse.xp_parse_ref(*sub_args, UNIT)), reps=1, warmup=0)
+    parsed_ref, = ref_out
+    parse_err = max(
+        compare("xp_parse", xp_parse.xp_parse(*sub_args, UNIT), parsed_ref),
+        compare("xp_parse", tuple(p[sub] for p in parsed), parsed_ref))
+    parse_sub_ms = statistics.median(cuda_ms(
+        lambda: xp_parse.xp_parse(*sub_args, UNIT), reps=5))
+    parse_ms = statistics.median(cuda_ms(
+        lambda: xp_parse.xp_parse(*batch, UNIT), reps=5))
+    print(f"xp_parse: equal to plain on a sub-batch of {len(sub)} rows (the "
+          f"{XP_SUB_SHORTEST} shortest corpus streams and the malformed rows, "
+          f"longest {int(sub_args[1].max())} bytes): kernel "
+          f"{parse_sub_ms:.4f} ms, plain {parse_plain_ms:.4f} ms; kernel on "
+          f"the whole batch ({N} rows, longest {int(batch[1].max())} bytes, "
+          f"{int(batch[1].sum())} in all) {parse_ms:.4f} ms")
+    # the sub-batch's payload bytes as far as each row's length, the rest
+    # of the inputs and the record planes whole
+    kernels.append(kernel_entry(
+        "xp_parse", "tpucomp/kernels/xp_pallas.py:211", parse_err,
+        parse_sub_ms, parse_plain_ms,
+        int(sub_args[1].sum()) + nbytes(*sub_args[1:], *parsed_ref)))
+    rec_pos, rec_val, p_final, errk = parsed
+    err = (errk != 0) | (p_final < batch[2])
+    require(not bool(err[:len(units)].any()),
+            "a well-formed Xpress unit parsed with err set")
+    print(f"xpress: {int(err.sum())} rows with err ({N_XP_MALFORMED} "
+          "malformed rows injected)")
+    fill_in = (rec_pos, rec_val, UNIT)
+    filled = entry("fill_records", fill.fill_records_delta2,
+                   fill.fill_records_delta2_ref, fill_in, reps=5)
+    near_in = near_inputs(filled[0], filled[1])
+    near = entry("resolve_near", resolve.resolve_near,
+                 resolve.resolve_near_ref, near_in, reps=5)
+    seg_in = (near, SEG_LEVEL, SEG_LEVEL_CAP, False)
+    seg = entry("far_level (4 KiB level)", gather.far_level,
+                gather.far_level_ref, seg_in, reps=5)
+    entry("far_row", gather.far_row, gather.far_row_ref, (seg,), reps=5)
+    del parsed, parsed_ref, filled, near_in, near, seg, sub_args
+    del rec_pos, rec_val, fill_in, seg_in
+
+    # ---- 9. kernel vs plain: encode -------------------------------------------
+    units_np = np.zeros((len(units), UNIT), np.uint8)
+    for i, u in enumerate(units):
+        units_np[i, :len(u)] = np.frombuffer(u, np.uint8)
+    x = torch.from_numpy(units_np).to(dev)
+    ulen = torch.tensor(lens, dtype=torch.int32, device=dev)
+    disps = tuple(MATCH.run_disps)
+    entry("run_matchlens", runs.run_matchlens, runs.run_matchlens_ref,
+          (x, disps))
+
+    def library_sort(k, *planes):  # the yardstick: torch.sort + gather
+        s_key, idx = torch.sort(k, dim=1)
+        return (s_key, *(p.gather(1, idx) for p in planes))
+
+    key = match.hash_keys(x, MATCH.hash_bits, 16)
+    lib_ms = statistics.median(cuda_ms(lambda: library_sort(key), reps=10))
+    entry("sort_rows (hash key, 1 plane)", sort.sort_rows, sort.sort_rows_ref,
+          ((key,),), extra=f", torch.sort {lib_ms:.4f} ms")
+    del key
+    spos, packed, _ = match.hash_best_match_sorted(
+        x, UNIT, MATCH.hash_bits, MATCH.num_candidates, MATCH.cap,
+        max_disp=xp.WINDOW)
+    lib_ms = statistics.median(cuda_ms(lambda: library_sort(spos, packed),
+                                       reps=10))
+    entry("sort_rows (un-sort, 2 planes)", sort.sort_rows, sort.sort_rows_ref,
+          ((spos, packed),), extra=f", torch.sort + gather {lib_ms:.4f} ms")
+    del spos, packed
+    best_len, _, use_match, okpos = xp.find_matches(x, ulen)
+    committed = entry("greedy_commit (no layout)", commit.greedy_commit,
+                      commit.greedy_commit_ref, (use_match, best_len, okpos),
+                      plain_reps=1)
+    print(f"greedy_commit: {int(committed.sum())} tokens")
+    del best_len, use_match, okpos, committed
+
+    # ---- 10. main path --------------------------------------------------------
+    wrappers = {"xp_parse": (xp_parse.xp_parse,),
+                "fill_records": (fill.fill_records_delta2,),
+                "resolve_near": (resolve.resolve_near,),
+                "far_level": (gather.far_level,),
+                "far_row": (gather.far_row,),
+                "run_matchlens": (runs.run_matchlens,),
+                "sort_rows": (sort.sort_rows,),
+                "greedy_commit": (commit.greedy_commit,)}
+    for fns in wrappers.values():
+        for fn in fns:
+            fn.launches = 0
+    corrupt = streams[0][:3] + bytes([streams[0][3] | 0x80, 8, 0]) \
+        + streams[0][6:]
+    oneshot = units[0][:50000]
+    torch.cuda.reset_peak_memory_stats()
+    out = tpucomp_torch.decompress_batch("xpress", streams, lens,
+                                         device="cuda")
+    dec_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    enc = tpucomp_torch.compress_batch("xpress", units, device="cuda")
+    enc_peak = torch.cuda.max_memory_allocated()
+    one = tpucomp_torch.compress("xpress", oneshot, device="cuda")
+    one_back = tpucomp_torch.decompress("xpress", one, len(oneshot),
+                                        device="cuda")
+    try:
+        tpucomp_torch.decompress_batch("xpress", [corrupt], [UNIT],
+                                       device="cuda")
+        raised = False
+    except tpucomp_torch.DataError:
+        raised = True
+    launches = {k: sum(fn.launches for fn in fns)
+                for k, fns in wrappers.items()}
+    print(f"xpress main path launches: {launches}")
+    require(out == units, "xpress decompress_batch output differs from the "
+            "units")
+    for i in sorted(rng.choice(len(units), min(16, len(units)),
+                               replace=False).tolist()):
+        require(native.xpress_decompress(streams[i], lens[i]) == out[i],
+                f"xpress unit {i} differs from the native C decoder")
+    print(f"xpress decompress_batch: {len(units)} units equal to the input; "
+          f"{min(16, len(units))} sampled units equal to the native C "
+          "decoder")
+    t0 = time.perf_counter()
+    want = tpucomp_torch.compress_batch("xpress", units, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    require(enc == want, "the card's Xpress streams differ from the plain "
+            "versions' on the CPU")
+    back = tpucomp_torch.decompress_batch("xpress", enc, lens, device="cuda")
+    require(back == units, "the card's Xpress streams do not decode back "
+            "through decompress_batch")
+    require(all(native.xpress_decompress(s, n) == u
+                for s, n, u in zip(enc, lens, units)),
+            "the card's Xpress streams do not decode back through the native "
+            "C decoder")
+    enc_bytes = sum(map(len, enc))
+    print(f"xpress compress_batch: {enc_bytes} bytes (ratio "
+          f"{enc_bytes / total}; native C encoder {sum(sizes)}, ratio "
+          f"{sum(sizes) / total}), all {len(units)} units equal to "
+          f"compress_batch(device='cpu') ({cpu_s:.2f} s on the host) and "
+          "decoding back through the port and the native C decoder")
+    require(one_back == oneshot and one == tpucomp_torch.compress_batch(
+        "xpress", [oneshot], device="cuda")[0], "the one-shot Xpress round "
+        "trip failed")
+    print(f"xpress one-shot: {len(oneshot)} bytes -> {len(one)} -> back")
+    require(raised, "a corrupt Xpress unit did not raise DataError")
+    print("xpress corrupt unit: DataError raised")
+    for name, n in launches.items():
+        require(n > 0, f"{name} never launched on the Xpress main path")
+    print(f"xpress peak device memory: decompress_batch "
+          f"{dec_peak / 2**30:.3f} GiB, compress_batch "
+          f"{enc_peak / 2**30:.3f} GiB")
+
+    dec_batch = xp.pack_units(streams, lens, UNIT, dev)
+    timed = [
+        ("decode_batch (device, batch resident)",
+         lambda: xp.decode_batch(*dec_batch, UNIT)),
+        ("decompress_batch (host pack + copies + device)",
+         lambda: tpucomp_torch.decompress_batch("xpress", streams, lens,
+                                                device="cuda")),
+        ("encode_batch (device, batch resident)",
+         lambda: xp.encode_batch(x, ulen)),
+        ("compress_batch (host batch + copies + device)",
+         lambda: tpucomp_torch.compress_batch("xpress", units,
+                                              device="cuda")),
+    ]
+    for label, fn in timed:
+        ms = cuda_ms(fn, reps=5)
+        med = statistics.median(ms)
+        print(f"xpress {label}: median {med:.4f} ms of "
+              f"{[round(m, 4) for m in ms]} -> {total / med / 1e6:.4f} GB/s")
+    stages: dict[str, list[float]] = {}
+    for _ in range(3):
+        t = {}
+        for name, fn in (
+                ("xp_parse", lambda: t.update(p=xp_parse.xp_parse(
+                    *dec_batch, UNIT))),
+                ("fill_records", lambda: t.update(f=fill.fill_records_delta2(
+                    t["p"][0], t["p"][1], UNIT))),
+                ("near_inputs (fold)", lambda: t.update(
+                    n=near_inputs(t["f"][0], t["f"][1]))),
+                ("resolve_near", lambda: t.update(
+                    r=resolve.resolve_near(*t["n"]))),
+                ("far_level", lambda: t.update(s=gather.far_level(
+                    t["r"], SEG_LEVEL, SEG_LEVEL_CAP, False))),
+                ("far_row", lambda: gather.far_row(t["s"])),
+                ("run_matchlens", lambda: runs.run_matchlens(x, disps)),
+                ("hash_best_match", lambda: t.update(h=match.hash_best_match(
+                    x, UNIT, MATCH.hash_bits, MATCH.num_candidates, MATCH.cap,
+                    max_disp=xp.WINDOW))),
+                ("extend_saturated", lambda: match.extend_saturated(
+                    *t["h"], MATCH.cap, UNIT)),
+                ("find_matches whole", lambda: t.update(
+                    m=xp.find_matches(x, ulen))),
+                ("greedy_commit", lambda: t.update(c=commit.greedy_commit(
+                    t["m"][2], t["m"][0], t["m"][3]))),
+                ("assemble_payload", lambda: xp.assemble_payload(
+                    x, *t["m"][:3], t["c"]))):
+            stages.setdefault(name, []).extend(cuda_ms(fn, reps=1, warmup=0))
+        del t
+    print("xpress stages, CUDA events, median of 3 (ms): " + "; ".join(
+        f"{k} {statistics.median(v):.4f}" for k, v in stages.items()))
+    profile_device("xpress decompress_batch",
+                   lambda: tpucomp_torch.decompress_batch(
+                       "xpress", streams, lens, device="cuda"))
+    profile_device("xpress compress_batch",
+                   lambda: tpucomp_torch.compress_batch(
+                       "xpress", units, device="cuda"))
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -920,7 +1255,11 @@ def main() -> None:
     enc_launches = encode_phases(dev, data, native, stream, kernels)
     for k in kernels:
         k["launches"] = k.get("launches", 0) + enc_launches.get(k["name"], 0)
-    require(len(kernels) == 10, f"{len(kernels)} kernels in the line, not 10")
+    # ---- 9-10. plain Xpress ------------------------------------------------
+    xp_launches = xpress_phases(dev, units, native, kernels)
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + xp_launches.get(k["name"], 0)
+    require(len(kernels) == 11, f"{len(kernels)} kernels in the line, not 11")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@ neither JAX nor tpucomp, and runs where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest``: ``tests/conftest.py`` sets JAX up for the other files.)
-The Xpress Huffman streams come from the repo's native C encoder, which
-``chip_smoke.Native`` builds with the host C compiler.
+The Xpress Huffman and plain Xpress streams come from the repo's native
+C encoder, which ``chip_smoke.Native`` builds with the host C compiler.
 """
 
 import numpy as np
@@ -18,9 +18,11 @@ import torch
 import tpucomp_torch
 from chip_smoke import Native
 from tpucomp_torch.codecs import lznt1 as lz
+from tpucomp_torch.codecs import xpress as xp
 from tpucomp_torch.codecs import xpress_huff as xh
 from tpucomp_torch.kernels import commit, common, fill, gather, lznt1_parse
 from tpucomp_torch.kernels import match, resolve, runs, sort, xh_parse
+from tpucomp_torch.kernels import xp_parse
 
 pytestmark = pytest.mark.cuda
 
@@ -252,7 +254,7 @@ def test_run_matchlens_kernel_matches_plain(U, dev):
     _assert_equal(got, runs.run_matchlens_ref(xs, disps))
 
 
-@pytest.mark.parametrize("U", [256, 512, 4096, 16384])
+@pytest.mark.parametrize("U", [256, 512, 4096, 16384, 65536, 1000, 20000])
 def test_sort_rows_kernel_matches_plain(U, dev):
     r = np.random.default_rng(U)
     N = 6
@@ -260,6 +262,7 @@ def test_sort_rows_kernel_matches_plain(U, dev):
     key[1] = r.choice(np.arange(-(1 << 30), 1 << 30, 7919), U, replace=False)
     key[2] = np.arange(U)[::-1]  # reversed
     key[3] = np.arange(U)  # already sorted
+    key[4, :3] = (1 << 31) - 1 - np.arange(3)  # the widest keys (padding's)
     planes = [torch.from_numpy(key).to(dev)] + [
         torch.from_numpy(r.integers(-(1 << 31), 1 << 31, (N, U))
                          .astype(np.int32)).to(dev) for _ in range(8)]
@@ -276,8 +279,9 @@ def test_sort_rows_kernel_many_planes_and_refusals(dev):
     before = sort.sort_rows.launches
     _assert_equal(sort.sort_rows(planes), sort.sort_rows_ref(planes))
     assert sort.sort_rows.launches == before + 2
-    with pytest.raises(ValueError, match="power of two"):
-        sort.sort_rows((key[:, :1000].contiguous(),))
+    with pytest.raises(ValueError, match="at most 65536"):
+        sort.sort_rows((torch.zeros((1, 65537), dtype=torch.int32,
+                                    device=dev),))
     with pytest.raises(ValueError, match="contiguous"):
         sort.sort_rows((key[:, ::2],))
 
@@ -339,3 +343,73 @@ def test_compress_on_card_matches_cpu_and_round_trips(dev):
     got = tpucomp_torch.compress_batch("lznt1", units)
     assert got == tpucomp_torch.compress_batch("lznt1", units, device="cpu")
     assert tpucomp_torch.decompress_batch("lznt1", got) == units
+
+
+def _xp_rows(native):
+    """Plain Xpress (stream, out_len) rows: native C units of 64 KiB and
+    shorter, then malformed ones (cut short, a match before the start, and
+    a u32 length that wraps int32 and moves the position backwards)."""
+    r = np.random.default_rng(31)
+    units = [_encode_inputs()[:12000], bytes(65536),
+             r.integers(0, 256, 3000, dtype=np.uint8).tobytes(),
+             (b"abcabd" * 900)[:5000], b"z"]
+    rows = [(native.xpress_compress(u), len(u)) for u in units]
+    s = rows[0][0]
+    wrap = bytes([0xFF, 0xFF, 0xFF, 0x4F, 7, 7, 0, 0x0F, 0xFF, 0, 0,
+                  0xFD, 0xFF, 0xFF, 0x7F, 8, 9])
+    rows += [(s[:len(s) // 2], 65536),
+             (s[:3] + bytes([s[3] | 0x80, 8, 0]) + s[6:], 65536),
+             (wrap, 4)]
+    return rows, units
+
+
+def test_xp_parse_kernel_matches_plain(dev):
+    rows, units = _xp_rows(Native())
+    batch = xp.pack_units([s for s, _ in rows], [n for _, n in rows],
+                          65536, dev)
+    before = xp_parse.xp_parse.launches
+    got = xp_parse.xp_parse(*batch, 65536)
+    assert xp_parse.xp_parse.launches == before + 1
+    want = xp_parse.xp_parse_ref(*batch, 65536)
+    _assert_equal(got, want)
+    bad = ((want[3] != 0) | (want[2] < batch[2])).cpu()
+    assert not bad[:len(units)].any() and bad[len(units):].all()
+    assert want[2][-1] == 3 - (1 << 31) and want[3][-1] == 0  # the wrap
+
+
+def test_xpress_decode_on_card_matches_cpu(dev):
+    native = Native()
+    rows, units = _xp_rows(native)
+    streams, lens = [s for s, _ in rows], [n for _, n in rows]
+    batch = xp.pack_units(streams, lens, 65536, dev)
+    got = xp.decode_batch(*batch, 65536)
+    _assert_equal(got, xp.decode_batch(*(t.cpu() for t in batch), 65536))
+    out = tpucomp_torch.decompress_batch("xpress", streams[:len(units)],
+                                         lens[:len(units)])
+    assert out == units
+    with pytest.raises(tpucomp_torch.DataError):
+        tpucomp_torch.decompress_batch("xpress", streams[-3:], lens[-3:])
+
+
+def test_xpress_encode_on_card_matches_cpu_and_round_trips(dev):
+    native = Native()
+    data = _encode_inputs()
+    for W, units in ((4096, [data[i:i + 4096] for i in range(0, 20480, 4096)]
+                      + [b"", b"q" * 4000]),
+                     (65536, [data[:65536], data[:30000] * 2])):
+        rows = np.zeros((len(units), W), np.uint8)
+        for i, u in enumerate(units):
+            rows[i, :len(u)] = np.frombuffer(u, np.uint8)
+        ulen = torch.tensor([len(u) for u in units], dtype=torch.int32)
+        args = torch.from_numpy(rows), ulen
+        got = xp.encode_batch(*(t.to(dev) for t in args))
+        _assert_equal(got, xp.encode_batch(*args))
+        streams = tpucomp_torch.compress_batch("xpress", units, unit_size=W)
+        assert tpucomp_torch.decompress_batch(
+            "xpress", streams, [len(u) for u in units], unit_size=W) == units
+        for s, u in zip(streams, units):
+            assert native.xpress_decompress(s, len(u)) == u
+    d = data[:40000]  # one unit of 64 KiB
+    s = tpucomp_torch.compress("xpress", d)
+    assert s == tpucomp_torch.compress("xpress", d, device="cpu")
+    assert tpucomp_torch.decompress("xpress", s, len(d)) == d

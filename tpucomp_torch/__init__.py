@@ -5,8 +5,8 @@ package computes the same functions with PyTorch and CUDA kernels written
 by hand for Hopper (``kernels/csrc``, built by nvcc at first use into
 ``tpucomp_torch/_build/``).  It never imports JAX.
 
-Ported so far: LZNT1 encode and decode, and Xpress Huffman batched
-decode.
+Ported so far: LZNT1 encode and decode, plain Xpress unit encode and
+decode (one-shot up to 64 KiB), and Xpress Huffman batched decode.
 
     import tpucomp_torch
     stream = tpucomp_torch.compress("lznt1", data)              # on "cuda"
@@ -16,6 +16,8 @@ decode.
     units = tpucomp_torch.decompress_batch("lznt1", unit_streams)
     units = tpucomp_torch.decompress_batch("xpress_huff", unit_streams,
                                            out_lens)          # 64 KiB units
+    streams = tpucomp_torch.compress_batch("xpress", units)    # <= 64 KiB each
+    units = tpucomp_torch.decompress_batch("xpress", streams, out_lens)
 
 On CPU tensors every kernel's plain PyTorch version runs instead.
 """

@@ -4,8 +4,9 @@ Counterparts of ``tpucomp.compress`` / ``decompress`` (``backend="tpu"``),
 ``compress_batch``, ``decompress_batch`` and ``max_compressed_size``.
 Every call that computes takes a ``device``; the default is ``"cuda"``,
 and asking for CUDA where it is not available raises.  Ported so far:
-LZNT1 encode and decode (one-shot and batched) and Xpress Huffman's
-batched decode; any other call raises :class:`UnsupportedFormatError`.
+LZNT1 and plain Xpress encode and decode (one-shot and batched; Xpress
+one-shot up to 64 KiB) and Xpress Huffman's batched decode; any other
+call raises :class:`UnsupportedFormatError`.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 from . import formats
-from .codecs import lznt1, xpress_huff
+from .codecs import lznt1, xpress, xpress_huff
 from .errors import ArgError, UnsupportedFormatError
 from .formats import Format
 
@@ -21,8 +22,8 @@ from .formats import Format
 def _not_ported(fmt: Format, call: str):
     return UnsupportedFormatError(
         f"{call} of format {fmt.name} is not ported to tpucomp_torch yet "
-        "(LZNT1 compress, compress_batch, decompress and decompress_batch, "
-        "and XPRESS_HUFF decompress_batch are)")
+        "(LZNT1 and XPRESS compress, compress_batch, decompress and "
+        "decompress_batch, and XPRESS_HUFF decompress_batch are)")
 
 
 def compress(fmt, data: bytes, *, device="cuda") -> bytes:
@@ -31,9 +32,11 @@ def compress(fmt, data: bytes, *, device="cuda") -> bytes:
     if data is None:
         raise ArgError("data must be bytes-like")
     fmt = formats.canonical(fmt)
-    if fmt != Format.LZNT1:
-        raise _not_ported(fmt, "compress")
-    return lznt1.compress(data, device=device)
+    if fmt == Format.LZNT1:
+        return lznt1.compress(data, device=device)
+    if fmt == Format.XPRESS:
+        return xpress.compress(data, device=device)
+    raise _not_ported(fmt, "compress")
 
 
 def compress_batch(fmt, units, *, unit_size: Optional[int] = None,
@@ -44,11 +47,17 @@ def compress_batch(fmt, units, *, unit_size: Optional[int] = None,
     LZNT1: a unit is one chunk of at most 4096 bytes (a longer one raises
     :class:`ArgError`); an empty unit gives ``b""``.  ``unit_size`` is
     accepted for parity with tpucomp and not used.
+
+    XPRESS: units of at most ``unit_size`` bytes (default 65536, the
+    widest), one row each.
     """
     fmt = formats.canonical(fmt)
-    if fmt != Format.LZNT1:
-        raise _not_ported(fmt, "compress_batch")
-    return lznt1.compress_units(list(units), device=device)
+    if fmt == Format.LZNT1:
+        return lznt1.compress_units(list(units), device=device)
+    if fmt == Format.XPRESS:
+        return xpress.compress_units(list(units), unit_size or xpress.UNIT,
+                                     device=device)
+    raise _not_ported(fmt, "compress_batch")
 
 
 def max_compressed_size(fmt, n: int) -> int:
@@ -56,9 +65,11 @@ def max_compressed_size(fmt, n: int) -> int:
     if n < 0:
         raise ArgError("n must be non-negative")
     fmt = formats.canonical(fmt)
-    if fmt != Format.LZNT1:
-        raise _not_ported(fmt, "max_compressed_size")
-    return lznt1.max_compressed_size(n)
+    if fmt == Format.LZNT1:
+        return lznt1.max_compressed_size(n)
+    if fmt == Format.XPRESS:
+        return xpress.max_compressed_size(n)
+    raise _not_ported(fmt, "max_compressed_size")
 
 
 def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,
@@ -66,14 +77,17 @@ def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,
     """One-shot decompress of one stream on ``device``.
 
     LZNT1 is self-terminating; ``out_len`` truncates the result, and a
-    stream shorter than ``out_len`` raises :class:`DataError`.
+    stream shorter than ``out_len`` raises :class:`DataError`.  XPRESS
+    needs ``out_len`` (at most 65536; :class:`ArgError` without it).
     """
     if data is None:
         raise ArgError("data must be bytes-like")
     fmt = formats.canonical(fmt)
-    if fmt != Format.LZNT1:
-        raise _not_ported(fmt, "decompress")
-    return lznt1.decompress(data, out_len, device=device)
+    if fmt == Format.LZNT1:
+        return lznt1.decompress(data, out_len, device=device)
+    if fmt == Format.XPRESS:
+        return xpress.decompress(data, out_len, device=device)
+    raise _not_ported(fmt, "decompress")
 
 
 def decompress_batch(fmt, streams, out_lens=None, *,
@@ -88,10 +102,18 @@ def decompress_batch(fmt, streams, out_lens=None, *,
     :class:`ArgError`) gives the decoded lengths, at most ``unit_size``
     (default 65536, a multiple of 512).  A malformed unit raises
     :class:`DataError`.
+
+    XPRESS: as XPRESS_HUFF, with ``unit_size`` any width up to 65536.
     """
     fmt = formats.canonical(fmt)
     if fmt == Format.LZNT1:
         return lznt1.decompress_units(list(streams), device=device)
+    if fmt == Format.XPRESS:
+        if out_lens is None:
+            raise ArgError("XPRESS: out_lens is required")
+        return xpress.decompress_units(list(streams), list(out_lens),
+                                       unit_size or xpress.UNIT,
+                                       device=device)
     if fmt == Format.XPRESS_HUFF:
         if out_lens is None:
             raise ArgError("XPRESS_HUFF: out_lens is required")

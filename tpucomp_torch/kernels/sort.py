@@ -5,7 +5,10 @@ and of ``tpucomp.kernels.common.sort_rows`` (``lax.sort`` with one key)
 wherever the keys of a row are unique, as every caller's are: then the
 order is the same whatever the sort.  :func:`sort_rows` launches
 ``csrc/sort_rows.cu`` on CUDA tensors and runs :func:`sort_rows_ref` on
-CPU tensors.
+CPU tensors.  Rows of a power of two up to 16384 sort in one block's
+shared memory; wider rows (up to 65536) and other widths sort in tiles
+of 16384 with the wide strides over device memory (two int32 [N, Up]
+scratch planes, Up the power of two at or above the width).
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import torch
 
 from . import _build
 
-MAX_ROW = 1 << 14  # (key, column) pairs of a row in shared memory: 128 KiB
+SMEM_ROW = 1 << 14  # (key, column) pairs of a row in shared memory: 128 KiB
+MAX_ROW = 1 << 16  # the widest row the tiled form takes
 PLANES_PER_LAUNCH = 16  # payload planes one launch takes (kernel argument)
 
 
@@ -43,9 +47,9 @@ def sort_rows(operands) -> tuple[torch.Tensor, ...]:
     planes with it.
 
     Every plane is int32 [N, U] and contiguous; the keys of a row must be
-    unique (the order of equal keys is unspecified).  On the card U must
-    be a power of two up to 16384.  Returns the sorted key plane and the
-    permuted payload planes, in the order given.
+    unique (the order of equal keys is unspecified).  On the card U is at
+    most 65536.  Returns the sorted key plane and the permuted payload
+    planes, in the order given.
     """
     ops = tuple(operands)
     if not _build.use_kernel(*ops):
@@ -54,18 +58,24 @@ def sort_rows(operands) -> tuple[torch.Tensor, ...]:
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("planes must be contiguous")
     N, U = ops[0].shape
-    if U & (U - 1) or U > MAX_ROW:
-        raise ValueError(f"rows must be a power of two up to {MAX_ROW} "
-                         f"wide, got {U}")
+    if U > MAX_ROW:
+        raise ValueError(f"rows must be at most {MAX_ROW} wide, got {U}")
     outs = tuple(torch.empty_like(t) for t in ops)
     if N == 0 or U == 0:
         return outs
+    if U & (U - 1) == 0 and U <= SMEM_ROW:
+        name, scratch = "sort_rows", []
+    else:
+        Up = 1 << (U - 1).bit_length()
+        name = "sort_rows_tiled"
+        scratch = [torch.empty((N, Up), dtype=torch.int32,
+                               device=ops[0].device) for _ in range(2)]
     pay_in, pay_out = ops[1:], outs[1:]
     for k in range(0, max(1, len(pay_in)), PLANES_PER_LAUNCH):
         # each launch sorts the key again and writes it: planes past the
         # first launch's are rare (no caller has more than 8)
         group = slice(k, k + PLANES_PER_LAUNCH)
-        _build.launch("sort_rows", [ops[0], outs[0]],
+        _build.launch(name, [ops[0], outs[0], *scratch],
                       [N, U, len(pay_in[group])],
                       tables=(pay_in[group], pay_out[group]))
         sort_rows.launches += 1
