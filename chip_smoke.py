@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tpucomp_torch on one NVIDIA GPU: LZNT1 decode, Xpress
-Huffman (XH) batched decode, LZNT1 encode and plain Xpress unit decode
-and encode end to end.
+Huffman (XH) batched decode, LZNT1 encode, plain Xpress unit decode and
+encode, and XH encode end to end.
 
     python3 chip_smoke.py
 
@@ -79,6 +79,23 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``decode_batch`` and ``encode_batch`` (resident), ``decompress_batch``
    and ``compress_batch``, the median of 5; the stages; peak memory; one
    ``decompress_batch`` and one ``compress_batch`` under the profiler.
+11. XH encode kernel vs plain: the 514 units of phase 5 as one [514,
+   65536] batch.  The row gather at the lookup's shape (a 512-entry table,
+   65536 queries a row) and at the TPU kernel's own K = 65536, beside
+   ``torch.gather``; the run matcher, the row sort of the hash key and of
+   the un-sort (no window bound) and the greedy walk on the XH rows.  Each
+   against its plain version, equal exactly, with both times.
+12. XH encode main path, with every launch count set to 0 first:
+   ``compress_batch("xpress_huff", ...)`` of the 514 units and a one-shot
+   ``compress`` of 200 KiB (four blocks); a sub-batch of 32 units (the
+   random one, the zeros, a short one and 29 from the corpus) encoded on
+   the card equal to ``compress_batch(..., device="cpu")`` and to the big
+   batch's rows; all 514 streams decoding back through the port's
+   ``decompress_batch`` on the card, 16 sampled ones and the one-shot
+   also through the native C decoder; every kernel of the path launched.
+   Then the ratio beside the native C encoder's; GB/s of ``encode_batch``
+   (resident) and ``compress_batch``, the median of 5; the stages; peak
+   memory; one ``compress_batch`` under the profiler.
 
 The last two lines are JSON: the kernels, and ``{"ok": true, "device":
 ...}``.  The script exits nonzero, printing neither, when CUDA is absent.
@@ -110,6 +127,8 @@ N_XH_MALFORMED = 32
 XH_SUB_SHORTEST = 32  # corpus streams in the plain parse's sub-batch
 N_XP_MALFORMED = 32
 XP_SUB_SHORTEST = 32
+XHE_SUB_CORPUS = 29  # corpus units in the XH encode host sub-batch
+ONESHOT_BYTES = 200 << 10
 
 
 # H100 SXM device memory rate (NVIDIA's data sheet): every kernel here is
@@ -346,6 +365,43 @@ def compare(name, got, want) -> int:
     return max_err
 
 
+def hold_to_plain(where, label, fn, ref, args, reps=10, plain_reps=3,
+                  extra=""):
+    """Hold kernel wrapper ``fn`` to its plain version ``ref`` on ``args``
+    (equal exactly), then time both with CUDA events (medians) and print
+    them beside the bound: the tensors of ``args`` read once, the outputs
+    written once.  Returns (output, max abs err, kernel ms, plain ms,
+    bytes moved)."""
+    import torch
+
+    got = fn(*args)
+    max_err = compare(label, got, ref(*args))
+    ms = statistics.median(cuda_ms(lambda: fn(*args), reps=reps))
+    plain_ms = statistics.median(cuda_ms(lambda: ref(*args), reps=plain_reps))
+    ins = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
+           if isinstance(t, torch.Tensor)]
+    outs = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+    moved = nbytes(*ins, *outs)
+    print(f"{label} ({where} shapes {[list(t.shape) for t in ins]}): equal to "
+          f"plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms{extra}")
+    return got, max_err, ms, plain_ms, moved
+
+
+def fold_err(kernels, label, max_err) -> None:
+    """Fold a comparison into the existing entry of the kernel that
+    ``label`` names (its first word)."""
+    k = next(k for k in kernels if k["name"] == label.split(" ")[0])
+    k["max_abs_err"] = max(k["max_abs_err"], max_err)
+
+
+def xh_units(units, rng) -> list:
+    """The corpus's units of 64 KiB, one of random bytes from ``rng``
+    (substep tier 3, the longest XH body) and one of zeros (tier 17)."""
+    return list(units) + [
+        rng.integers(0, 256, UNIT, dtype=np.uint8).tobytes(), bytes(UNIT)]
+
+
 def xh_phases(dev, units, native, kernels) -> dict:
     """Phases 5 and 6, Xpress Huffman.  Adds the XH kernels' entries to
     ``kernels`` (and the XH comparisons of resolve_near and far_level to
@@ -358,9 +414,7 @@ def xh_phases(dev, units, native, kernels) -> dict:
     from tpucomp_torch.kernels.common import SEG_LEVEL, SEG_LEVEL_CAP
 
     rng = np.random.default_rng(SEED + 1)
-    units = list(units) + [
-        rng.integers(0, 256, UNIT, dtype=np.uint8).tobytes(),  # tier 3
-        bytes(UNIT)]  # tier 17
+    units = xh_units(units, rng)
     t0 = time.perf_counter()
     streams = [native.xh_compress(u) for u in units]
     lens = [len(u) for u in units]
@@ -844,23 +898,11 @@ def xpress_phases(dev, units, native, kernels) -> dict:
           f"{time.perf_counter() - t0:.2f} s to encode")
 
     def entry(name, fn, ref, args, reps=10, plain_reps=3, extra=""):
-        """Hold ``fn`` to ``ref`` on ``args``; print both times and the
-        bound (the tensors of ``args`` read once, the outputs written
-        once); fold the comparison into the kernel's existing entry
-        (which keeps the times of its first slice)."""
-        got = fn(*args)
-        max_err = compare(name, got, ref(*args))
-        ms = statistics.median(cuda_ms(lambda: fn(*args), reps=reps))
-        plain_ms = statistics.median(cuda_ms(lambda: ref(*args),
-                                             reps=plain_reps))
-        ins = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
-               if isinstance(t, torch.Tensor)]
-        outs = (got,) if isinstance(got, torch.Tensor) else tuple(got)
-        print(f"{name} (Xpress shape {list(ins[0].shape)}): equal to plain; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{nbytes(*ins, *outs) / HBM_BYTES_PER_S * 1e3:.4f} ms{extra}")
-        k = next(k for k in kernels if k["name"] == name.split(" ")[0])
-        k["max_abs_err"] = max(k["max_abs_err"], max_err)
+        """:func:`hold_to_plain`, its comparison folded into the kernel's
+        existing entry (which keeps the times of its first slice)."""
+        got, max_err, *_ = hold_to_plain("Xpress", name, fn, ref, args, reps,
+                                         plain_reps, extra)
+        fold_err(kernels, name, max_err)
         return got
 
     # ---- 9. kernel vs plain: decode -------------------------------------------
@@ -1084,6 +1126,213 @@ def xpress_phases(dev, units, native, kernels) -> dict:
     return launches
 
 
+def launch_counters() -> list:
+    """Every kernel wrapper of the port: the functions of
+    ``tpucomp_torch.kernels`` that count their launches."""
+    import importlib
+    import pkgutil
+
+    import tpucomp_torch.kernels as pkg
+
+    fns = []
+    for info in pkgutil.iter_modules(pkg.__path__):
+        mod = importlib.import_module(f"{pkg.__name__}.{info.name}")
+        fns += [f for f in vars(mod).values() if callable(f)
+                and hasattr(f, "launches") and f.__module__ == mod.__name__]
+    return fns
+
+
+def xh_encode_phases(dev, units, native, kernels) -> dict:
+    """Phases 11 and 12, XH encode.  Adds the row gather's entry to
+    ``kernels`` (and the XH comparisons of the run matcher, row sort and
+    walk to theirs) and returns the launches of every kernel on the XH
+    encode main path."""
+    import torch
+
+    import tpucomp_torch
+    from tpucomp_torch.codecs import xpress as xp
+    from tpucomp_torch.codecs import xpress_huff as xh
+    from tpucomp_torch.config import DEFAULT as MATCH
+    from tpucomp_torch.kernels import commit, gather, match, runs, sort
+
+    units = xh_units(units, np.random.default_rng(SEED + 1))  # phase 5's
+    lens = [len(u) for u in units]
+    total = sum(lens)
+    units_np = np.zeros((len(units), UNIT), np.uint8)
+    for i, u in enumerate(units):
+        units_np[i] = np.frombuffer(u, np.uint8)
+    x = torch.from_numpy(units_np).to(dev)
+    ulen = torch.tensor(lens, dtype=torch.int32, device=dev)
+    N = x.shape[0]
+
+    # ---- 11. kernel vs plain --------------------------------------------------
+    def check(label, fn, ref, args, reps=10, plain_reps=1):
+        got, max_err, *_ = hold_to_plain("XH encode", label, fn, ref, args,
+                                         reps, plain_reps)
+        fold_err(kernels, label, max_err)
+        return got
+
+    print(f"xh encode kernel vs plain at [{N}, {UNIT}] (the units of phase 5), "
+          f"config {MATCH.to_dict()}")
+    disps = tuple(MATCH.run_disps)
+    check("run_matchlens", runs.run_matchlens, runs.run_matchlens_ref,
+          (x, disps), plain_reps=3)
+    key = match.hash_keys(x, MATCH.hash_bits, 16)
+    check("sort_rows (hash key, 1 plane)", sort.sort_rows, sort.sort_rows_ref,
+          ((key,),), plain_reps=3)
+    del key
+    spos, packed, _ = match.hash_best_match_sorted(
+        x, UNIT, MATCH.hash_bits, MATCH.num_candidates, MATCH.cap)
+    check("sort_rows (un-sort, 2 planes)", sort.sort_rows, sort.sort_rows_ref,
+          ((spos, packed),), plain_reps=3)
+    del spos, packed
+    best_len, best_disp, use_match, okpos = xp.find_matches(x, ulen,
+                                                            max_disp=None)
+    committed = check("greedy_commit (no layout)", commit.greedy_commit,
+                      commit.greedy_commit_ref, (use_match, best_len, okpos))
+    sym = xh.symbols(x, best_len, best_disp, use_match, committed)
+    lengths, codes = xh.code_tables(sym)
+    print(f"xh encode: {int(committed.sum())} tokens, "
+          f"{int((sym < 256).sum())} literals")
+    # the lookup: (code << 5) | length of each position's symbol
+    table = (codes << 5) | lengths
+    idx = sym.clamp(max=xh.NUM_SYMBOLS - 1)
+    lookup_in = (table, idx, 20)
+    _, err512, ms512, plain512, moved512 = hold_to_plain(
+        "XH encode", "gather_rows (lookup, K = 512)", gather.gather_rows,
+        gather.gather_rows_ref, lookup_in, reps=20)
+    idx64 = idx.long()
+    lib512 = statistics.median(cuda_ms(lambda: torch.gather(table, 1, idx64),
+                                       reps=20))
+    print(f"gather_rows (lookup): torch.gather (int64 index made before) "
+          f"{lib512:.4f} ms")
+    del idx64
+    # the TPU kernel's own shape: a 64 KiB table of full 32-bit words,
+    # 65536 seeded in-range queries a row
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    wide = match.le_words(x)
+    widx = torch.randint(0, UNIT, (N, UNIT), generator=gen, device=dev,
+                         dtype=torch.int32)
+    _, err64k, *_ = hold_to_plain(
+        "XH encode", "gather_rows (K = 65536)", gather.gather_rows,
+        gather.gather_rows_ref, (wide, widx, 32), reps=20)
+    widx64 = widx.long()
+    lib64k = statistics.median(cuda_ms(lambda: torch.gather(wide, 1, widx64),
+                                       reps=20))
+    print(f"gather_rows (K = 65536): torch.gather (int64 index made before) "
+          f"{lib64k:.4f} ms")
+    del wide, widx, widx64
+    kernels.append(kernel_entry(
+        "gather_rows", "tpucomp/kernels/gather_pallas.py:343",
+        max(err512, err64k), ms512, plain512, moved512, lib512))
+    del best_len, best_disp, use_match, okpos, committed, sym, lengths
+    del codes, table, idx, lookup_in
+
+    # ---- 12. main path ---------------------------------------------------------
+    wrappers = {"run_matchlens": (runs.run_matchlens,),
+                "sort_rows": (sort.sort_rows,),
+                "greedy_commit": (commit.greedy_commit,
+                                  commit.greedy_commit_layout),
+                "gather_rows": (gather.gather_rows,)}
+    rng = np.random.default_rng(SEED + 4)
+    n_corpus = len(units) - 2
+    sub_idx = sorted(rng.choice(n_corpus, XHE_SUB_CORPUS,
+                                replace=False).tolist()) + [n_corpus,
+                                                            n_corpus + 1]
+    short = units[sub_idx[0]][:12345]
+    sub = [units[i] for i in sub_idx] + [short]
+    data = b"".join(units[:4])[:ONESHOT_BYTES]
+    blocks = [data[i:i + xh.BLOCK] for i in range(0, len(data), xh.BLOCK)]
+    for fn in launch_counters():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    enc = tpucomp_torch.compress_batch("xpress_huff", units)
+    peak = torch.cuda.max_memory_allocated()
+    one = tpucomp_torch.compress("xpress_huff", data)
+    sub_enc = tpucomp_torch.compress_batch("xpress_huff", sub)
+    launches = {k: sum(fn.launches for fn in fns)
+                for k, fns in wrappers.items()}
+    print(f"xh encode main path launches: {launches}")
+    t0 = time.perf_counter()
+    want = tpucomp_torch.compress_batch("xpress_huff", sub, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    require(sub_enc == want, "the card's XH streams differ from the plain "
+            "versions' on the CPU")
+    require(sub_enc[:-1] == [enc[i] for i in sub_idx], "the sub-batch's "
+            "streams differ from the whole batch's")
+    print(f"xh compress_batch: a sub-batch of {len(sub)} units "
+          f"({XHE_SUB_CORPUS} from the corpus, the random one, the zeros, "
+          f"one of {len(short)} bytes) equal to compress_batch(device='cpu') "
+          f"({cpu_s:.2f} s on the host) and to the whole batch's rows")
+    back = tpucomp_torch.decompress_batch("xpress_huff", enc, lens)
+    require(back == units, "the card's XH streams do not decode back through "
+            "decompress_batch")
+    for i in sorted(rng.choice(len(units), min(16, len(units)),
+                               replace=False).tolist()):
+        require(native.xh_decompress(enc[i], lens[i]) == units[i],
+                f"xh encoded unit {i} does not decode back through the "
+                "native C decoder")
+    enc_bytes = sum(map(len, enc))
+    native_bytes = sum(len(native.xh_compress(u)) for u in units)
+    print(f"xh compress_batch: {len(units)} units -> {enc_bytes} bytes (ratio "
+          f"{enc_bytes / total}; native C encoder {native_bytes}, ratio "
+          f"{native_bytes / total}); all decode back through "
+          "decompress_batch on the card, 16 sampled through the native C "
+          "decoder")
+    one_blocks = tpucomp_torch.compress_batch("xpress_huff", blocks)
+    require(one == b"".join(one_blocks), "the one-shot XH stream is not its "
+            "blocks' streams joined")
+    require(tpucomp_torch.decompress_batch(
+        "xpress_huff", one_blocks, [len(b) for b in blocks]) == blocks,
+        "a block of the one-shot XH stream does not decode back")
+    require(native.xh_decompress(one, len(data)) == data,
+            "the one-shot XH stream does not decode back through the native "
+            "C decoder")
+    print(f"xh one-shot compress: {len(data)} bytes, {len(blocks)} blocks -> "
+          f"{len(one)} bytes; each block decodes back, the whole stream "
+          "through the native C decoder")
+    for name, n in launches.items():
+        require(n > 0, f"{name} never launched on the XH encode main path")
+    print(f"xh encode peak device memory (compress_batch): "
+          f"{peak / 2**30:.3f} GiB")
+
+    timed = [
+        ("encode_batch (device, batch resident)",
+         lambda: xh.encode_batch(x, ulen)),
+        ("compress_batch (host batch + copies + device)",
+         lambda: tpucomp_torch.compress_batch("xpress_huff", units)),
+    ]
+    for label, fn in timed:
+        ms = cuda_ms(fn, reps=5)
+        med = statistics.median(ms)
+        print(f"xh {label}: median {med:.4f} ms of "
+              f"{[round(m, 4) for m in ms]} -> {total / med / 1e6:.4f} GB/s")
+    stages: dict[str, list[float]] = {}
+    for _ in range(3):
+        t = {}
+        for name, fn in (
+                ("find_matches", lambda: t.update(m=xp.find_matches(
+                    x, ulen, max_disp=None))),
+                ("greedy_commit", lambda: t.update(c=commit.greedy_commit(
+                    t["m"][2], t["m"][0], t["m"][3]))),
+                ("symbols", lambda: t.update(s=xh.symbols(
+                    x, *t["m"][:3], t["c"]))),
+                ("histogram + lengths + codes", lambda: t.update(
+                    h=xh.code_tables(t["s"]))),
+                ("lookup (gather_rows)", lambda: t.update(
+                    g=xh.lookup(*t["h"], t["s"]))),
+                ("layout + assembly", lambda: xh.assemble_payload(
+                    *t["m"][:3], t["c"], t["h"][0], t["g"]))):
+            stages.setdefault(name, []).extend(cuda_ms(fn, reps=1, warmup=0))
+        del t
+    print("xh encode stages, CUDA events, median of 3 (ms): " + "; ".join(
+        f"{k} {statistics.median(v):.4f}" for k, v in stages.items()))
+    profile_device("xh compress_batch", lambda: tpucomp_torch.compress_batch(
+        "xpress_huff", units))
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1259,7 +1508,11 @@ def main() -> None:
     xp_launches = xpress_phases(dev, units, native, kernels)
     for k in kernels:
         k["launches"] = k.get("launches", 0) + xp_launches.get(k["name"], 0)
-    require(len(kernels) == 11, f"{len(kernels)} kernels in the line, not 11")
+    # ---- 11-12. XH encode -------------------------------------------------
+    xhe_launches = xh_encode_phases(dev, units, native, kernels)
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + xhe_launches.get(k["name"], 0)
+    require(len(kernels) == 12, f"{len(kernels)} kernels in the line, not 12")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -413,3 +413,43 @@ def test_xpress_encode_on_card_matches_cpu_and_round_trips(dev):
     s = tpucomp_torch.compress("xpress", d)
     assert s == tpucomp_torch.compress("xpress", d, device="cpu")
     assert tpucomp_torch.decompress("xpress", s, len(d)) == d
+
+
+@pytest.mark.parametrize("K", [512, 16384, 65536])
+def test_gather_rows_kernel_matches_plain(K, dev):
+    """The shared-memory table (K = 512) and the read-only-cache path, with
+    indices outside [0, K) and values over all 32 bits."""
+    r = np.random.default_rng(K + 5)
+    data = torch.from_numpy(r.integers(-(1 << 31), 1 << 31, (5, K),
+                                       dtype=np.int64).astype(np.int32))
+    idx = r.integers(0, K, (5, 9000)).astype(np.int32)
+    idx[:, ::7] = r.choice([-1, K, K + 3, -(1 << 31), (1 << 31) - 1], 1286)
+    idx = torch.from_numpy(idx)
+    for nbits in (9, 20, 32):
+        before = gather.gather_rows.launches
+        got = gather.gather_rows(data.to(dev), idx.to(dev), nbits)
+        assert gather.gather_rows.launches == before + 1
+        _assert_equal([got], [gather.gather_rows_ref(data, idx, nbits)])
+
+
+def test_xh_encode_on_card_matches_cpu_and_round_trips(dev):
+    native = Native()
+    data = _encode_inputs()
+    W = 16384
+    units = [data[:W], data[W:2 * W], bytes(W), data[:5000], b"", b"q"]
+    rows = np.zeros((len(units), W), np.uint8)
+    for i, u in enumerate(units):
+        rows[i, :len(u)] = np.frombuffer(u, np.uint8)
+    ulen = torch.tensor([len(u) for u in units], dtype=torch.int32)
+    args = torch.from_numpy(rows), ulen
+    before = gather.gather_rows.launches
+    got = xh.encode_batch(*(t.to(dev) for t in args))
+    assert gather.gather_rows.launches == before + 1
+    _assert_equal(got, xh.encode_batch(*args))
+    streams = tpucomp_torch.compress_batch("xpress_huff", units, unit_size=W)
+    assert tpucomp_torch.decompress_batch(
+        "xpress_huff", streams, [len(u) for u in units], unit_size=W) == units
+    for s, u in zip(streams, units):
+        assert not u or native.xh_decompress(s, len(u)) == u
+    s = tpucomp_torch.compress("xpress_huff", data)
+    assert s == tpucomp_torch.compress("xpress_huff", data, device="cpu")

@@ -150,20 +150,20 @@ def test_decompress_batch_matches_tpucomp():
 @pytest.mark.parametrize("fmt", ["xpress", "xpress_huff",
                                  tpucomp_torch.Format.LZX])
 def test_unported_formats_raise(fmt):
-    """Every call of an unported format raises; of XPRESS_HUFF all but
-    ``decompress_batch`` do (its batched decode is ported); of XPRESS only
-    ``compress`` of more than 64 KiB does (tpucomp's single-stream
-    encoder)."""
-    calls = [lambda: tpucomp_torch.decompress(fmt, b"ab", 2, device="cpu"),
-             lambda: tpucomp_torch.compress(fmt, b"ab", device="cpu"),
-             lambda: tpucomp_torch.compress_batch(fmt, [b"ab"],
-                                                  device="cpu")]
+    """Every call of an unported format raises; of XPRESS_HUFF only the
+    one-shot ``decompress`` does (its encode and batched decode are
+    ported); of XPRESS only ``compress`` of more than 64 KiB does
+    (tpucomp's single-stream encoder)."""
+    calls = [lambda: tpucomp_torch.decompress(fmt, b"ab", 2, device="cpu")]
     if fmt == "xpress":
         calls = [lambda: tpucomp_torch.compress(fmt, bytes(65537),
                                                 device="cpu")]
     elif fmt != "xpress_huff":
-        calls.append(lambda: tpucomp_torch.decompress_batch(
-            fmt, [b"ab"], [2], device="cpu"))
+        calls += [lambda: tpucomp_torch.compress(fmt, b"ab", device="cpu"),
+                  lambda: tpucomp_torch.compress_batch(fmt, [b"ab"],
+                                                       device="cpu"),
+                  lambda: tpucomp_torch.decompress_batch(
+                      fmt, [b"ab"], [2], device="cpu")]
     for call in calls:
         with pytest.raises(tpucomp_torch.UnsupportedFormatError,
                            match="not ported"):

@@ -195,7 +195,7 @@ def test_max_compressed_size_errors():
         tpucomp_torch.max_compressed_size("lznt1", -1)
     with pytest.raises(tpucomp_torch.UnsupportedFormatError,
                        match="not ported"):
-        tpucomp_torch.max_compressed_size("xpress_huff", 10)
+        tpucomp_torch.max_compressed_size(tpucomp_torch.Format.LZX, 10)
 
 
 def test_compress_on_cuda_without_cuda_raises(monkeypatch):

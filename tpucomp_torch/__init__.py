@@ -6,7 +6,8 @@ by hand for Hopper (``kernels/csrc``, built by nvcc at first use into
 ``tpucomp_torch/_build/``).  It never imports JAX.
 
 Ported so far: LZNT1 encode and decode, plain Xpress unit encode and
-decode (one-shot up to 64 KiB), and Xpress Huffman batched decode.
+decode (one-shot up to 64 KiB), and Xpress Huffman encode (one-shot and
+batched) and batched decode.
 
     import tpucomp_torch
     stream = tpucomp_torch.compress("lznt1", data)              # on "cuda"
@@ -18,6 +19,8 @@ decode (one-shot up to 64 KiB), and Xpress Huffman batched decode.
                                            out_lens)          # 64 KiB units
     streams = tpucomp_torch.compress_batch("xpress", units)    # <= 64 KiB each
     units = tpucomp_torch.decompress_batch("xpress", streams, out_lens)
+    stream = tpucomp_torch.compress("xpress_huff", data)       # 64 KiB blocks
+    streams = tpucomp_torch.compress_batch("xpress_huff", units)
 
 On CPU tensors every kernel's plain PyTorch version runs instead.
 """

@@ -5,8 +5,9 @@ Counterparts of ``tpucomp.compress`` / ``decompress`` (``backend="tpu"``),
 Every call that computes takes a ``device``; the default is ``"cuda"``,
 and asking for CUDA where it is not available raises.  Ported so far:
 LZNT1 and plain Xpress encode and decode (one-shot and batched; Xpress
-one-shot up to 64 KiB) and Xpress Huffman's batched decode; any other
-call raises :class:`UnsupportedFormatError`.
+one-shot up to 64 KiB), Xpress Huffman encode (one-shot and batched) and
+its batched decode; any other call (the one-shot Xpress Huffman decode)
+raises :class:`UnsupportedFormatError`.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ def _not_ported(fmt: Format, call: str):
     return UnsupportedFormatError(
         f"{call} of format {fmt.name} is not ported to tpucomp_torch yet "
         "(LZNT1 and XPRESS compress, compress_batch, decompress and "
-        "decompress_batch, and XPRESS_HUFF decompress_batch are)")
+        "decompress_batch, and XPRESS_HUFF compress, compress_batch and "
+        "decompress_batch are)")
 
 
 def compress(fmt, data: bytes, *, device="cuda") -> bytes:
@@ -36,6 +38,8 @@ def compress(fmt, data: bytes, *, device="cuda") -> bytes:
         return lznt1.compress(data, device=device)
     if fmt == Format.XPRESS:
         return xpress.compress(data, device=device)
+    if fmt == Format.XPRESS_HUFF:
+        return xpress_huff.compress(data, device=device)
     raise _not_ported(fmt, "compress")
 
 
@@ -48,8 +52,9 @@ def compress_batch(fmt, units, *, unit_size: Optional[int] = None,
     :class:`ArgError`); an empty unit gives ``b""``.  ``unit_size`` is
     accepted for parity with tpucomp and not used.
 
-    XPRESS: units of at most ``unit_size`` bytes (default 65536, the
-    widest), one row each.
+    XPRESS and XPRESS_HUFF: units of at most ``unit_size`` bytes
+    (default 65536, the widest; a longer unit raises :class:`ArgError`),
+    one row each.
     """
     fmt = formats.canonical(fmt)
     if fmt == Format.LZNT1:
@@ -57,6 +62,9 @@ def compress_batch(fmt, units, *, unit_size: Optional[int] = None,
     if fmt == Format.XPRESS:
         return xpress.compress_units(list(units), unit_size or xpress.UNIT,
                                      device=device)
+    if fmt == Format.XPRESS_HUFF:
+        return xpress_huff.compress_units(
+            list(units), unit_size or xpress_huff.BLOCK, device=device)
     raise _not_ported(fmt, "compress_batch")
 
 
@@ -69,6 +77,8 @@ def max_compressed_size(fmt, n: int) -> int:
         return lznt1.max_compressed_size(n)
     if fmt == Format.XPRESS:
         return xpress.max_compressed_size(n)
+    if fmt == Format.XPRESS_HUFF:
+        return xpress_huff.max_compressed_size(n)
     raise _not_ported(fmt, "max_compressed_size")
 
 

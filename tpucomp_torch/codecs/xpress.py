@@ -42,13 +42,18 @@ import torch
 from ..config import DEFAULT, MatchFinderConfig
 from ..errors import ArgError, DataError, UnsupportedFormatError
 from ..kernels.commit import greedy_commit
-from ..kernels.common import far_rounds, place_monotone, scatter_sorted_or
+from ..kernels.common import (
+    far_rounds,
+    place_monotone,
+    rolled_or,
+    scatter_sorted_or,
+)
 from ..kernels.fill import fill_records_delta2
 from ..kernels.match import extend_saturated, hash_best_match
 from ..kernels.resolve import SEG, resolve_near
 from ..kernels.runs import run_matchlens
 from ..kernels.xp_parse import xp_parse
-from ..util import resolve_device
+from ..util import resolve_device, row_streams, unit_rows
 from .xpress_huff import near_inputs
 
 MIN_MATCH = 3
@@ -237,9 +242,12 @@ def encode_batch(units: torch.Tensor, ulen: torch.Tensor,
 
 
 def find_matches(units: torch.Tensor, ulen: torch.Tensor,
-                 match: MatchFinderConfig | None = None):
+                 match: MatchFinderConfig | None = None,
+                 max_disp: int | None = WINDOW):
     """Match finding and the lazy step of :func:`encode_batch`
-    (tpucomp's ``_encode_impl`` up to its walk).
+    (tpucomp's ``_encode_impl`` up to its walk).  ``max_disp`` bounds the
+    hash matches' displacement: Xpress's 8 KiB window, or None for Xpress
+    Huffman, whose window is the whole block.
 
     Returns ``best_len`` and ``best_disp`` (int32 [N, n], the lengths
     clipped to the unit), ``use_match`` (bool: a match the walk takes
@@ -276,7 +284,7 @@ def find_matches(units: torch.Tensor, ulen: torch.Tensor,
     for num_cands, seed in passes:
         hl, hd = hash_best_match(units, n, hash_bits=match.hash_bits,
                                  num_cands=num_cands, cap=match.cap,
-                                 max_disp=WINDOW, seed=seed)
+                                 max_disp=max_disp, seed=seed)
         # exact lengths past the compare cap (the reference is uncapped)
         hl = extend_saturated(hl, hd, match.cap, n)
         consider(hl, hd, hl >= MIN_MATCH)
@@ -302,16 +310,6 @@ def _match_extra_sizes(L, opens):
     sz = ((nib_user & opens).int() + (nib_user & (rem >= 15)).int()
           + 2 * big.int() + 4 * (big & (L >= 0x10000)).int())
     return sz, rem, big
-
-
-def _rolled_or(planes):
-    """planes[k] moved k columns right (the last k wrap to the front, as
-    tpucomp's ``jnp.roll``), all ORed: a byte sequence anchored at the
-    entry's key."""
-    acc = planes[0]
-    for k in range(1, len(planes)):
-        acc = acc | planes[k].roll(k, 1)
-    return acc
 
 
 def assemble_payload(units, best_len, best_disp, use_match, committed):
@@ -396,8 +394,8 @@ def assemble_payload(units, best_len, best_disp, use_match, committed):
     flag_planes = place_monotone(
         ~grp_exists, fpos1 - 1,
         tuple(((fv >> (8 * k)) & 0xFF).to(i32) for k in range(4)), MAXP)
-    val = (_rolled_or(tok_planes) | _rolled_or(esc_planes) | nib_plane
-           | _rolled_or(flag_planes))
+    val = (rolled_or(tok_planes) | rolled_or(esc_planes) | nib_plane
+           | rolled_or(flag_planes))
     plen = torch.where(T_total > 0, 4 * ngroups + d_cum[:, -1], 0).to(i32)
     bq = torch.arange(MAXP, device=dev)[None, :]
     payload = torch.where(bq < plen[:, None], val, 0).to(torch.uint8)
@@ -417,15 +415,7 @@ def compress_units(units, unit_size=UNIT, *, device="cuda") -> list:
         return []
     if any(len(u) > unit_size for u in units):
         raise ArgError("unit larger than unit_size")
-    rows = np.zeros((len(units), unit_size), np.uint8)
-    ulen = np.zeros(len(units), np.int32)
-    for i, u in enumerate(units):
-        rows[i, :len(u)] = np.frombuffer(u, np.uint8)
-        ulen[i] = len(u)
-    payload, plen = encode_batch(torch.from_numpy(rows).to(dev),
-                                 torch.from_numpy(ulen).to(dev))
-    payload, plen = payload.cpu().numpy(), plen.cpu().numpy()
-    return [payload[i, :plen[i]].tobytes() for i in range(len(units))]
+    return row_streams(*encode_batch(*unit_rows(units, unit_size, dev)))
 
 
 def compress(data: bytes, *, device="cuda") -> bytes:

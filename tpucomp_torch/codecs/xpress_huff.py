@@ -1,9 +1,10 @@
-"""Xpress Huffman batched decode, block-parallel, on PyTorch tensors.
+"""Xpress Huffman batched decode and encode, block-parallel, on PyTorch
+tensors.
 
-Counterpart of the decode half of ``tpucomp/codecs/xpress_huff.py``, the
-path ``decompress_units`` takes.  One row of a batch is one
-single-block unit stream: a 256-byte table of 512 code lengths, then the
-body.  The pipeline:
+Counterpart of ``tpucomp/codecs/xpress_huff.py`` but its one-shot
+multi-block decode.  One row of a batch is one single-block unit stream:
+a 256-byte table of 512 code lengths, then the body.  The decode
+pipeline (the path ``decompress_units`` takes):
 
   tables (plain torch)  -> canonical per-level limits and the rank->symbol
                            table of every row (kernels.huffman)
@@ -26,6 +27,22 @@ check, which sets err, depends on it.  The rank cap only bounds the
 length of tpucomp's rank->symbol scan; the parse here indexes the table
 directly and needs none.
 
+The encode pipeline (:func:`encode_batch`, tpucomp's ``_encode_impl``),
+whose streams equal tpucomp's byte for byte at the same
+``MatchFinderConfig``:
+
+  find_matches          -> the plain Xpress match finder (run matcher and
+                           row sort kernels) with no window bound
+  greedy commit walk (kernel)
+  symbols               -> a literal byte, or 256 | offset bits << 4 |
+                           length nibble, per committed token
+  code tables           -> histogram, two-queue Huffman lengths with the
+                           15-bit repair, canonical codes (plain torch)
+  lookup (kernel)       -> each token's (code, length) by the row gather
+  layout                -> the lazy-flush 16-bit word writer in closed
+                           form: bit offsets by cumsums, word planes and
+                           escape bytes by direct scatters
+
 The one-shot multi-block decode (tpucomp's ``decompress``) is not ported
 yet.
 """
@@ -35,22 +52,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import MatchFinderConfig
 from ..errors import ArgError, DataError
-from ..kernels.common import far_rounds
+from ..kernels.commit import greedy_commit
+from ..kernels.common import (
+    far_rounds,
+    fill_records_delta,
+    histogram,
+    place_monotone,
+    rolled_or,
+    scatter_sorted_or,
+)
 from ..kernels.fill import fill_records_delta2
-from ..kernels.huffman import (  # noqa: F401 (NUM_SYMBOLS: tpucomp's name)
+from ..kernels.gather import gather_rows
+from ..kernels.huffman import (
     NUM_SYMBOLS,
     canonical_from_lengths,
+    huffman_code_lengths,
     level_tables,
     rank_to_symbol_table,
     unpack_table,
 )
 from ..kernels.resolve import SEG, resolve_near
 from ..kernels.xh_parse import COPY_BIT, xh_parse
-from ..util import resolve_device
+from ..util import resolve_device, row_streams, unit_rows
 
 BLOCK = 65536
 TABLE = 256  # bytes of code lengths before the body
+MIN_MATCH = 3
 
 # min code length guaranteed by each substep tier (tpucomp's _BUCKET_MCL)
 _BUCKET_MCL = {3: 8, 5: 4, 9: 2, 17: 1}
@@ -59,6 +88,14 @@ _BUCKET_MCL = {3: 8, 5: 4, 9: 2, 17: 1}
 def max_payload(u: int) -> int:
     """Worst-case single-block payload: table + 2 bytes/input + slack."""
     return TABLE + 2 * u + 16
+
+
+def max_compressed_size(n: int) -> int:
+    """Worst-case stream size for ``n`` input bytes, the bound of
+    ``tpucomp.max_compressed_size`` (the oracle's; tpucomp's codec module
+    states the same): a table and 8 bytes of slack per 64 KiB block, 2
+    bytes per input byte, 4 more."""
+    return max(1, -(-n // BLOCK)) * (TABLE + 8) + 2 * n + 4
 
 
 def _min_code_len(streams) -> int:
@@ -231,3 +268,206 @@ def decompress_units(streams, out_lens, unit_size=BLOCK, fast_resolve=False,
         raise DataError("XpressHuff: malformed unit stream")
     out = out.cpu().numpy()
     return [out[i, :o].tobytes() for i, o in enumerate(out_lens)]
+
+
+# --------------------------------------------------------------------------
+# Encode
+# --------------------------------------------------------------------------
+
+
+def encode_batch(units: torch.Tensor, ulen: torch.Tensor,
+                 match: MatchFinderConfig | None = None):
+    """Encode a batch of units into single-block XH streams: the stages of
+    the module docstring, tpucomp's ``_encode_impl``.
+
+    Args (on one device):
+      units: uint8 [N, n], unit bytes, zero-padded; n <= 65536 is the unit
+             width (tpucomp takes int32; the values are equal).
+      ulen:  int32 [N], true unit length.
+      match: the match finder's parameters; :data:`config.DEFAULT` when
+             None.
+
+    Returns:
+      payload: uint8 [N, max_payload(n)] stream bytes, 0 past plen
+      plen:    int32 [N] stream length (260 for an empty unit: the table,
+               two empty word slots)
+    """
+    # deferred: codecs.xpress imports this module
+    from .xpress import find_matches
+
+    best_len, best_disp, use_match, okpos = find_matches(units, ulen, match,
+                                                         max_disp=None)
+    committed = greedy_commit(use_match, best_len, okpos)
+    sym = symbols(units, best_len, best_disp, use_match, committed)
+    lengths, codes = code_tables(sym)
+    codelen = lookup(lengths, codes, sym)
+    return assemble_payload(best_len, best_disp, use_match, committed,
+                            lengths, codelen)
+
+
+def floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) of positive int32 ``x``, exactly (tpucomp's ``31 -
+    clz(x)``), by halving the bit range five times."""
+    out = torch.zeros_like(x)
+    for sh in (16, 8, 4, 2, 1):
+        big = (x >> sh) > 0
+        out = torch.where(big, out + sh, out)
+        x = torch.where(big, x >> sh, x)
+    return out
+
+
+def symbols(units, best_len, best_disp, use_match, committed):
+    """int32 [N, n]: each committed token's symbol, a literal's byte or
+    ``256 | obc << 4 | min(len - 3, 15)`` for a match (obc = floor(log2
+    disp), the offset's raw bits), and 512 at every other position."""
+    obc = floor_log2(best_disp.clamp(min=1))
+    lh = (best_len - MIN_MATCH).clamp(max=15)
+    sym = torch.where(committed & use_match, 256 | (obc << 4) | lh,
+                      units.int())
+    return torch.where(committed, sym, NUM_SYMBOLS)
+
+
+def code_tables(sym: torch.Tensor):
+    """Each row's code lengths and canonical codes, int32 [N, 512] each,
+    from the histogram of its symbols."""
+    lengths = huffman_code_lengths(histogram(sym, NUM_SYMBOLS))
+    return lengths, canonical_from_lengths(lengths)[0]
+
+
+def lookup(lengths, codes, sym):
+    """``(code << 5) | length`` of each position's symbol, int32 [N, n],
+    through the row gather (tpucomp's ``mxu_gather_rows`` at nbits 20);
+    the sentinel 512 reads symbol 511's, which the layout masks."""
+    return gather_rows((codes << 5) | lengths, sym.clamp(max=NUM_SYMBOLS - 1),
+                       nbits=20)
+
+
+def _rel_field(rel, b, v):
+    """(lane, lo, hi): a field of b <= 15 bits at bit offset rel (0..30) of
+    a two-word window lands in lane rel >> 4 (lo) and, when it straddles,
+    the next lane (hi), MSB-first in each 16-bit lane."""
+    fit = 16 - (rel & 15) - b
+    lo = torch.where(fit >= 0, v << fit.clamp(min=0),
+                     v >> (-fit).clamp(min=0)) & 0xFFFF
+    lo = torch.where(b > 0, lo, 0)
+    spill = (b > 0) & (fit < 0)
+    hi = torch.where(spill, (v << (16 + fit).clamp(min=0)) & 0xFFFF, 0)
+    return rel >> 4, lo, hi
+
+
+def assemble_payload(best_len, best_disp, use_match, committed, lengths,
+                     codelen):
+    """The closed-form layout of tpucomp's lazy-flush writer
+    (``_encode_impl`` from its layout on), from the walk and the lookup.
+
+    The writer keeps at most 16 pending bits and flushes a 16-bit LE word
+    once more are pending, so after B bits it has flushed (B - 1) >> 4
+    words, and word w holds bits [16w, 16w + 16) MSB-first.  A token's
+    code and offset fields (at most 30 bits) touch at most three words
+    from its first, W = S_A >> 4.  Two word slots precede the data; an
+    escape byte sits after the slots of the words flushed before its
+    token, so the slot of word j >= 2 moves by the escape bytes of the
+    tokens up to the one that flushed word j - 2 (the decoder reads two
+    words ahead).  Returns (payload, plen).
+    """
+    N, n = best_len.shape
+    dev = best_len.device
+    i32 = torch.int32
+    tok_copy = committed & use_match
+    L = best_len - MIN_MATCH
+    obc = floor_log2(best_disp.clamp(min=1))
+    lh = L.clamp(max=15)
+    offraw = best_disp & ((torch.ones_like(obc) << obc) - 1)
+    rem = L - 15
+    has_esc = tok_copy & (lh == 15)
+    esc_big = has_esc & (rem >= 255)
+    nraw = torch.where(has_esc, torch.where(esc_big, 3, 1), 0).to(i32)
+    esc_b0 = torch.where(esc_big, 255, rem.clamp(min=0))
+    # the u16 escape holds L itself (< 0x10000 for a unit of 64 KiB)
+    esc_pack = esc_b0 | ((L & 0xFF) << 8) | (((L >> 8) & 0xFF) << 16)
+
+    bits_a = torch.where(committed, codelen & 0x1F, 0)  # the code's length
+    code_v = torch.where(committed, codelen >> 5, 0)
+    bits_b = torch.where(tok_copy, obc, 0)  # the offset's raw bits
+    offraw_v = torch.where(tok_copy, offraw, 0)
+    bits_tok = bits_a + bits_b
+    b_after = bits_tok.cumsum(1, dtype=i32)
+    s_a = b_after - bits_tok
+    ebytes = torch.where(tok_copy, nraw, 0)
+    e_after = ebytes.cumsum(1, dtype=i32)
+    e_p = e_after - ebytes
+    b_tot = b_after[:, -1]
+    raw_total = e_after[:, -1]
+    flushes_after = ((b_after - 1) >> 4).clamp(min=0)
+    F = ((b_tot - 1) >> 4).clamp(min=0)
+
+    # word values, token-major: contributions c0, c1, c2 to words W, W + 1,
+    # W + 2 of each token; the bits of different tokens are disjoint
+    w_tok = s_a >> 4
+    _, a_lo, a_hi = _rel_field(s_a & 15, bits_a, code_v)
+    b_lane, b_lo, b_hi = _rel_field(s_a + bits_a - 16 * w_tok, bits_b,
+                                    offraw_v)
+    c0 = a_lo | torch.where(b_lane == 0, b_lo, 0)
+    c1 = a_hi | torch.where(b_lane == 0, b_hi, b_lo)
+    c2 = torch.where(b_lane == 1, b_hi, 0)
+    WMAX = n + 8  # bits <= 15 L + 30 M with L + 3 M <= n
+    wq = torch.arange(WMAX, dtype=i32, device=dev)[None, :]
+    word_val = rolled_or([scatter_sorted_or(w_tok, c, WMAX)
+                         for c in (c0, c1, c2)])
+    nwords = F + (b_tot - 16 * F > 0).to(i32)
+    # reserved but unwritten slots hold zeros, as the reference writer's
+    wval = torch.where(wq < nwords[:, None], word_val, 0)
+
+    # slot j >= 2 sits after the escape bytes of every token up to the last
+    # one with flushes_after <= j - 2 (0 when there is none)
+    ef = fill_records_delta(flushes_after, e_after, WMAX)
+    e_shift = torch.cat([torch.zeros((N, 2), dtype=i32, device=dev),
+                         ef[:, :WMAX - 2]], 1)
+    wpos = torch.where(wq < 2, 2 * wq, 2 * wq + e_shift)
+    slots_total = 2 + F
+    r_start = 4 + 2 * flushes_after + e_p
+
+    # byte assembly: word-slot bytes and escape bytes are two strictly
+    # increasing position streams that partition the body
+    body_len = 2 * slots_total + raw_total
+    PB = 2 * n + 16
+    wvalid = wq < slots_total[:, None]
+    word_bytes = place_monotone(~wvalid, wpos, (wval & 0xFF, wval >> 8), PB)
+    esc_vals = tuple(torch.where(nraw > k, (esc_pack >> (8 * k)) & 0xFF, 0)
+                     for k in range(3))
+    esc_bytes = place_monotone(nraw == 0, r_start, esc_vals, PB)
+    body = rolled_or(word_bytes) | rolled_or(esc_bytes)
+    bq = torch.arange(PB, dtype=i32, device=dev)[None, :]
+    body = torch.where(bq < body_len[:, None], body, 0)
+    table = lengths[:, 0::2] | (lengths[:, 1::2] << 4)
+    payload = torch.cat([table, body], 1).to(torch.uint8)
+    return payload, (TABLE + body_len).to(i32)
+
+
+def compress_units(units, unit_size=BLOCK, *, device="cuda") -> list:
+    """Compress independent units of at most ``unit_size`` <= 65536 bytes
+    as single-block XH streams, all in one device batch, as tpucomp's
+    ``compress_units`` (which slices the batch for its compiler and pads
+    it with empty rows; neither changes a unit's bytes).  An empty unit
+    gives a 260-byte stream, as in tpucomp."""
+    dev = resolve_device(device)
+    if not 0 < unit_size <= BLOCK:
+        raise ArgError("XPRESS_HUFF units are single <= 64 KiB blocks, got "
+                       f"unit_size {unit_size}")
+    units = [bytes(u) for u in units]
+    if not units:
+        return []
+    if any(len(u) > unit_size for u in units):
+        raise ArgError("unit larger than unit_size")
+    return row_streams(*encode_batch(*unit_rows(units, unit_size, dev)))
+
+
+def compress(data: bytes, *, device="cuda") -> bytes:
+    """One-shot XH compress, tpucomp's ``compress``: 64 KiB blocks
+    encoded in one batch and concatenated (the standard multi-block
+    layout; matches stay inside their block)."""
+    data = bytes(data)
+    if not data:
+        return b""
+    units = [data[i:i + BLOCK] for i in range(0, len(data), BLOCK)]
+    return b"".join(compress_units(units, device=device))

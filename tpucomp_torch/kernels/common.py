@@ -1,10 +1,10 @@
 """Shared pieces of ``tpucomp.kernels.common`` that the port's codecs use.
 
-``fill_records_delta``, ``place_monotone`` and ``scatter_sorted_or`` are
-XLA in tpucomp, not Pallas, so they stay plain PyTorch here (the last two
-as direct scatters).  :func:`far_rounds` is tpucomp's ``_far_rounds``: the far
-levels that resolve the tags the near walk leaves, each a CUDA kernel of
-:mod:`tpucomp_torch.kernels.gather`.
+``fill_records_delta``, ``place_monotone``, ``scatter_sorted_or`` and
+``histogram_matmul`` are XLA in tpucomp, not Pallas, so they stay plain
+PyTorch here (all but the first as direct scatters).  :func:`far_rounds`
+is tpucomp's ``_far_rounds``: the far levels that resolve the tags the
+near walk leaves, each a CUDA kernel of :mod:`tpucomp_torch.kernels.gather`.
 """
 
 from __future__ import annotations
@@ -57,6 +57,16 @@ def far_rounds(out: torch.Tensor, U: int, min_hop: int,
     return far_row(out)
 
 
+def rolled_or(planes) -> torch.Tensor:
+    """planes[k] moved k columns right (the last k wrap to the front, as
+    tpucomp's ``jnp.roll``), all ORed: a byte sequence anchored at each
+    entry's key, from one placed plane per byte."""
+    acc = planes[0]
+    for k in range(1, len(planes)):
+        acc = acc | planes[k].roll(k, 1)
+    return acc
+
+
 def place_monotone(empty: torch.Tensor, keys: torch.Tensor, vals,
                    U: int):
     """Dense placement of sorted records: ``out[n, k]`` = the value of the
@@ -98,6 +108,20 @@ def scatter_sorted_or(keys: torch.Tensor, vals: torch.Tensor,
     out.scatter_add_(1, torch.where(real, keys, U).long(),
                      torch.where(real, vals, 0))
     return out[:, :U]
+
+
+def histogram(sym: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Per-row counts, int32 [N, nbins]: ``out[n, s]`` = how many
+    ``sym[n, i] == s``, for s < nbins; symbols outside [0, nbins) (the XH
+    encoder's sentinel 512) are dropped.  tpucomp's ``histogram_matmul``
+    counts with one-hot matmuls; here it is one ``scatter_add_`` into a
+    spare column for the dropped symbols."""
+    N = sym.shape[0]
+    real = (sym >= 0) & (sym < nbins)
+    out = torch.zeros((N, nbins + 1), dtype=torch.int32, device=sym.device)
+    out.scatter_add_(1, torch.where(real, sym, nbins).long(),
+                     torch.ones_like(sym, dtype=torch.int32))
+    return out[:, :nbins]
 
 
 def fill_records_delta(rec_pos: torch.Tensor, rec_val: torch.Tensor,

@@ -1,5 +1,9 @@
-"""The far levels of copy resolution: pointer doubling, and value-chase
-probes.
+"""Row gathers: the generic one, and the far levels of copy resolution
+(pointer doubling, value-chase probes).
+
+- :func:`gather_rows`: ``out[n, q] = data[n, idx[n, q]]``, tpucomp's
+  ``mxu_gather_rows`` and its Pallas form ``gather_rows_fused``.
+  Launches ``csrc/gather_rows.cu``, one thread a query.
 
 After the near walk, a position holds a byte or ``FAR_TAG | src``, an
 absolute source in its row.  Counterparts of tpucomp's round loops and
@@ -33,6 +37,60 @@ from . import _build
 from .common import ARCHIVE_PROBE_BUDGET, FAR_TAG, MAX_ROW, level_cap
 
 MAX_SEG = 4096  # a segment's double-buffered state fits shared memory
+
+
+def plane_mask(nbits: int) -> int:
+    """The bits a gather of ``nbits``-bit values keeps: tpucomp assembles
+    ``min(4, ceil(nbits / 8))`` whole byte planes (``gather_pallas.py:348``,
+    ``common.py:899``), so ``nbits = 20`` keeps 24 bits; -1 for all 32."""
+    if nbits < 1:
+        raise ValueError(f"nbits must be at least 1, got {nbits}")
+    planes = min(4, -(-nbits // 8))
+    return -1 if planes == 4 else (1 << (8 * planes)) - 1
+
+
+def _check_gather(data, idx):
+    if data.dtype != torch.int32 or idx.dtype != torch.int32 \
+            or data.dim() != 2 or idx.dim() != 2 \
+            or data.shape[0] != idx.shape[0]:
+        raise ValueError("gather_rows takes int32 [N, K] data and int32 "
+                         "[N, Q] indices")
+
+
+def gather_rows_ref(data: torch.Tensor, idx: torch.Tensor,
+                    nbits: int = 32) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gather_rows`: one
+    ``torch.gather``."""
+    _check_gather(data, idx)
+    mask = plane_mask(nbits)
+    if data.shape[1] == 0:
+        return torch.zeros_like(idx)
+    ok = (idx >= 0) & (idx < data.shape[1])
+    got = data.gather(1, torch.where(ok, idx, 0).long())
+    return torch.where(ok, got & mask, 0)
+
+
+def gather_rows(data: torch.Tensor, idx: torch.Tensor,
+                nbits: int = 32) -> torch.Tensor:
+    """``out[n, q] = data[n, idx[n, q]]`` masked to :func:`plane_mask`
+    ``(nbits)``; an index outside [0, K) reads 0.  Takes int32 [N, K] and
+    int32 [N, Q], returns int32 [N, Q]; bit 31 passes when ``nbits`` >=
+    25."""
+    if not _build.use_kernel(data, idx):
+        return gather_rows_ref(data, idx, nbits)
+    _check_gather(data, idx)
+    mask = plane_mask(nbits)
+    N, K = data.shape
+    Q = idx.shape[1]
+    src, ix = data.contiguous(), idx.contiguous()
+    out = torch.empty_like(ix)
+    if N and Q:
+        _build.launch("gather_rows", [src, ix, out], [N, K, Q, mask])
+        gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0
 
 
 def gather18_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
