@@ -42,10 +42,11 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 
 7. Encode kernel vs plain: the corpus's 8208 chunks as one [8208, 4096]
    batch on the card.  The run matcher, the row sort (the hash sort's key
-   plane, and the un-sort's two planes beside ``torch.sort`` + ``gather``,
-   the library call), and the greedy walk with and without the layout
-   sums, each against its plain version on the same tensors, equal
-   exactly; each one's time, its plain version's and its bound.
+   plane and the un-sort's two planes, each beside ``torch.sort`` (+
+   ``gather``), the library call, with the digit passes its rows ran),
+   and the greedy walk with and without the layout sums, each against its
+   plain version on the same tensors, equal exactly; each one's time, its
+   plain version's and its bound.
 8. Encode main path, with the encode kernels' launch counts set to 0
    first: ``tpucomp_torch.compress("lznt1", data)`` of the corpus, equal
    to ``compress(..., device="cpu")`` (the plain versions end to end) and
@@ -83,8 +84,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    65536] batch.  The row gather at the lookup's shape (a 512-entry table,
    65536 queries a row) and at the TPU kernel's own K = 65536, beside
    ``torch.gather``; the run matcher, the row sort of the hash key and of
-   the un-sort (no window bound) and the greedy walk on the XH rows.  Each
-   against its plain version, equal exactly, with both times.
+   the un-sort (no window bound, each beside ``torch.sort`` (+
+   ``gather``), with its digit passes) and the greedy walk on the XH
+   rows.  Each against its plain version, equal exactly, with both times.
 12. XH encode main path, with every launch count set to 0 first:
    ``compress_batch("xpress_huff", ...)`` of the 514 units and a one-shot
    ``compress`` of 200 KiB (four blocks); a sub-batch of 32 units (the
@@ -395,6 +397,31 @@ def fold_err(kernels, label, max_err) -> None:
     k["max_abs_err"] = max(k["max_abs_err"], max_err)
 
 
+def sort_case(where, label, planes, reps=10, plain_reps=3):
+    """:func:`hold_to_plain` of the row sort on ``planes`` (the key
+    first), timed beside ``torch.sort`` (+ ``gather`` of the payload
+    planes), the library call computing the same function; then the digit
+    passes its rows ran, on a line of their own.  Returns (max abs err,
+    kernel ms, plain ms, bytes moved, library ms)."""
+    import torch
+
+    from tpucomp_torch.kernels import sort
+
+    def library():
+        s_key, idx = torch.sort(planes[0], dim=1)
+        return (s_key, *(p.gather(1, idx) for p in planes[1:]))
+
+    lib_ms = statistics.median(cuda_ms(library, reps=reps))
+    lib = "torch.sort + gather" if len(planes) > 1 else "torch.sort"
+    _, err, ms, plain_ms, moved = hold_to_plain(
+        where, label, sort.sort_rows, sort.sort_rows_ref, (planes,), reps,
+        plain_reps, extra=f", {lib} {lib_ms:.4f} ms")
+    passes = sort.digit_passes(planes[0])
+    print(f"{label} ({where}): digit passes per row {int(passes.min())} "
+          f"to {int(passes.max())}, of up to 4")
+    return err, ms, plain_ms, moved, lib_ms
+
+
 def xh_units(units, rng) -> list:
     """The corpus's units of 64 KiB, one of random bytes from ``rng``
     (substep tier 3, the longest XH body) and one of zeros (tier 17)."""
@@ -456,14 +483,17 @@ def xh_phases(dev, units, native, kernels) -> dict:
         lambda: xh_parse.xh_parse(*sub_args, UNIT), reps=5))
     parse_ms = statistics.median(cuda_ms(
         lambda: xh_parse.xh_parse(*args, UNIT), reps=5))
+    # the body bytes as far as each row's length, the rest of the inputs
+    # and the record planes whole (the whole batch here, the sub-batch in
+    # the kernel's entry)
+    whole = (int(args[1].clamp(min=0).sum()) + nbytes(*args[1:])
+             + nbytes(*parsed))
     print(f"xh_parse: equal to plain on a sub-batch of {len(sub)} rows (the "
           f"{XH_SUB_SHORTEST} shortest corpus streams and the malformed "
           f"rows, longest body {sub_blen} bytes): kernel {parse_sub_ms:.4f} "
           f"ms, plain {parse_plain_ms:.4f} ms; kernel on the whole batch "
           f"({N} rows, longest body {int(args[1].max())} bytes) "
-          f"{parse_ms:.4f} ms")
-    # the sub-batch's body bytes as far as each row's length, the rest of
-    # the inputs and the record planes whole
+          f"{parse_ms:.4f} ms, bound {whole / HBM_BYTES_PER_S * 1e3:.4f} ms")
     kernels.append(kernel_entry(
         "xh_parse", "tpucomp/kernels/xh_pallas.py:371", parse_err,
         parse_sub_ms, parse_plain_ms,
@@ -643,10 +673,10 @@ def encode_phases(dev, data: bytes, native, native_stream: bytes,
                                              reps=plain_reps))
         return got, max_err, ms, plain_ms
 
-    def show(label, ms, plain_ms, moved, extra=""):
+    def show(label, ms, plain_ms, moved):
         print(f"{label}: equal to plain; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} "
-              f"ms ({moved} bytes){extra}")
+              f"ms ({moved} bytes)")
 
     disps = tuple(MATCH.run_disps)
     got, err, ms, plain_ms = check("run_matchlens", runs.run_matchlens,
@@ -660,40 +690,29 @@ def encode_phases(dev, data: bytes, native, native_stream: bytes,
 
     # the hash sort: the chain keys alone, then the route's word gathers
     key = match.hash_keys(chunks, MATCH.hash_bits, 12)
-    (skey,), hs_err, hs_ms, hs_plain_ms = check(
-        "sort_rows (hash key)", sort.sort_rows, sort.sort_rows_ref, ((key,),))
-    show("sort_rows (hash key, 1 plane)", hs_ms, hs_plain_ms,
-         nbytes(key, skey))
+    hs_err, *_ = sort_case("LZNT1 encode", "sort_rows (hash key, 1 plane)",
+                           (key,), reps=20)
     w = match.le_words(chunks)
     nwords = MATCH.cap // 4
     route_ms = statistics.median(cuda_ms(lambda: match.sorted_words(
         w, sort.sort_rows((key,))[0] & (U - 1), nwords), reps=10))
     # reads the key and the word plane, writes the sorted key and the words
-    route_moved = nbytes(key, w, skey) + nwords * nbytes(w)
+    route_moved = 2 * nbytes(key) + (1 + nwords) * nbytes(w)
     print(f"hash sort route (kernel on the key, then {nwords} word gathers): "
           f"{route_ms:.4f} ms, bound "
           f"{route_moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
-    del key, skey, w
+    del key, w
 
     spos, packed, _ = match.hash_best_match_sorted(
         chunks, U, MATCH.hash_bits, MATCH.num_candidates, MATCH.cap,
         pos_bits=12)
-    got, un_err, ms, plain_ms = check(
-        "sort_rows (un-sort)", sort.sort_rows, sort.sort_rows_ref,
-        ((spos, packed),))
-
-    def library_sort():
-        _, idx = torch.sort(spos, dim=1)
-        return packed.gather(1, idx)
-
-    library_ms = statistics.median(cuda_ms(library_sort, reps=20))
-    moved = nbytes(spos, packed, *got)
-    show("sort_rows (un-sort, 2 planes)", ms, plain_ms, moved,
-         f", torch.sort + gather {library_ms:.4f} ms")
+    un_err, ms, plain_ms, moved, library_ms = sort_case(
+        "LZNT1 encode", "sort_rows (un-sort, 2 planes)", (spos, packed),
+        reps=20)
     kernels.append(kernel_entry(
         "sort_rows", "tpucomp/kernels/sort_pallas.py:95", max(hs_err, un_err),
         ms, plain_ms, moved, library_ms))
-    del spos, packed, got
+    del spos, packed
 
     best_len, _, use_match, okpos = lz.find_matches(chunks, clen)
     walk_in = (use_match, best_len, okpos)
@@ -897,11 +916,11 @@ def xpress_phases(dev, units, native, kernels) -> dict:
           f"(median {sizes[len(sizes) // 2]}), "
           f"{time.perf_counter() - t0:.2f} s to encode")
 
-    def entry(name, fn, ref, args, reps=10, plain_reps=3, extra=""):
+    def entry(name, fn, ref, args, reps=10, plain_reps=3):
         """:func:`hold_to_plain`, its comparison folded into the kernel's
         existing entry (which keeps the times of its first slice)."""
         got, max_err, *_ = hold_to_plain("Xpress", name, fn, ref, args, reps,
-                                         plain_reps, extra)
+                                         plain_reps)
         fold_err(kernels, name, max_err)
         return got
 
@@ -930,14 +949,17 @@ def xpress_phases(dev, units, native, kernels) -> dict:
         lambda: xp_parse.xp_parse(*sub_args, UNIT), reps=5))
     parse_ms = statistics.median(cuda_ms(
         lambda: xp_parse.xp_parse(*batch, UNIT), reps=5))
+    # the payload bytes as far as each row's length, the rest of the inputs
+    # and the record planes whole (the whole batch here, the sub-batch in
+    # the kernel's entry)
+    whole = int(batch[1].sum()) + nbytes(*batch[1:], *parsed)
     print(f"xp_parse: equal to plain on a sub-batch of {len(sub)} rows (the "
           f"{XP_SUB_SHORTEST} shortest corpus streams and the malformed rows, "
           f"longest {int(sub_args[1].max())} bytes): kernel "
           f"{parse_sub_ms:.4f} ms, plain {parse_plain_ms:.4f} ms; kernel on "
           f"the whole batch ({N} rows, longest {int(batch[1].max())} bytes, "
-          f"{int(batch[1].sum())} in all) {parse_ms:.4f} ms")
-    # the sub-batch's payload bytes as far as each row's length, the rest
-    # of the inputs and the record planes whole
+          f"{int(batch[1].sum())} in all) {parse_ms:.4f} ms, bound "
+          f"{whole / HBM_BYTES_PER_S * 1e3:.4f} ms")
     kernels.append(kernel_entry(
         "xp_parse", "tpucomp/kernels/xp_pallas.py:211", parse_err,
         parse_sub_ms, parse_plain_ms,
@@ -971,22 +993,16 @@ def xpress_phases(dev, units, native, kernels) -> dict:
     entry("run_matchlens", runs.run_matchlens, runs.run_matchlens_ref,
           (x, disps))
 
-    def library_sort(k, *planes):  # the yardstick: torch.sort + gather
-        s_key, idx = torch.sort(k, dim=1)
-        return (s_key, *(p.gather(1, idx) for p in planes))
-
     key = match.hash_keys(x, MATCH.hash_bits, 16)
-    lib_ms = statistics.median(cuda_ms(lambda: library_sort(key), reps=10))
-    entry("sort_rows (hash key, 1 plane)", sort.sort_rows, sort.sort_rows_ref,
-          ((key,),), extra=f", torch.sort {lib_ms:.4f} ms")
+    err, *_ = sort_case("Xpress", "sort_rows (hash key, 1 plane)", (key,))
+    fold_err(kernels, "sort_rows", err)
     del key
     spos, packed, _ = match.hash_best_match_sorted(
         x, UNIT, MATCH.hash_bits, MATCH.num_candidates, MATCH.cap,
         max_disp=xp.WINDOW)
-    lib_ms = statistics.median(cuda_ms(lambda: library_sort(spos, packed),
-                                       reps=10))
-    entry("sort_rows (un-sort, 2 planes)", sort.sort_rows, sort.sort_rows_ref,
-          ((spos, packed),), extra=f", torch.sort + gather {lib_ms:.4f} ms")
+    err, *_ = sort_case("Xpress", "sort_rows (un-sort, 2 planes)",
+                        (spos, packed))
+    fold_err(kernels, "sort_rows", err)
     del spos, packed
     best_len, _, use_match, okpos = xp.find_matches(x, ulen)
     committed = entry("greedy_commit (no layout)", commit.greedy_commit,
@@ -1178,13 +1194,14 @@ def xh_encode_phases(dev, units, native, kernels) -> dict:
     check("run_matchlens", runs.run_matchlens, runs.run_matchlens_ref,
           (x, disps), plain_reps=3)
     key = match.hash_keys(x, MATCH.hash_bits, 16)
-    check("sort_rows (hash key, 1 plane)", sort.sort_rows, sort.sort_rows_ref,
-          ((key,),), plain_reps=3)
+    err, *_ = sort_case("XH encode", "sort_rows (hash key, 1 plane)", (key,))
+    fold_err(kernels, "sort_rows", err)
     del key
     spos, packed, _ = match.hash_best_match_sorted(
         x, UNIT, MATCH.hash_bits, MATCH.num_candidates, MATCH.cap)
-    check("sort_rows (un-sort, 2 planes)", sort.sort_rows, sort.sort_rows_ref,
-          ((spos, packed),), plain_reps=3)
+    err, *_ = sort_case("XH encode", "sort_rows (un-sort, 2 planes)",
+                        (spos, packed))
+    fold_err(kernels, "sort_rows", err)
     del spos, packed
     best_len, best_disp, use_match, okpos = xp.find_matches(x, ulen,
                                                             max_disp=None)

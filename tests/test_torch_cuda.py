@@ -254,21 +254,66 @@ def test_run_matchlens_kernel_matches_plain(U, dev):
     _assert_equal(got, runs.run_matchlens_ref(xs, disps))
 
 
-@pytest.mark.parametrize("U", [256, 512, 4096, 16384, 65536, 1000, 20000])
-def test_sort_rows_kernel_matches_plain(U, dev):
-    r = np.random.default_rng(U)
-    N = 6
-    key = np.stack([r.permutation(U) for _ in range(N)]).astype(np.int32)
+def _sort_keys(U, r):
+    """Eight rows of unique keys: a permutation, values of both signs,
+    reversed and sorted rows, the widest keys, keys that vary only in
+    their top bits (the high byte at U = 256, bit 31 alone at U = 2), and
+    keys whose low 7 bits are the same nonzero bits."""
+    key = np.stack([r.permutation(U) for _ in range(8)]).astype(np.int64)
     key[1] = r.choice(np.arange(-(1 << 30), 1 << 30, 7919), U, replace=False)
     key[2] = np.arange(U)[::-1]  # reversed
     key[3] = np.arange(U)  # already sorted
-    key[4, :3] = (1 << 31) - 1 - np.arange(3)  # the widest keys (padding's)
+    key[4, :3] = (1 << 31) - 1 - np.arange(min(3, U))  # the widest keys
+    top = max(1, (U - 1).bit_length())
+    key[5] = (r.permutation(U) << (32 - top)) - (1 << 31)
+    key[6] = (r.permutation(U) << 7) | 0x55
+    return key.astype(np.int32)
+
+
+@pytest.mark.parametrize("U", [1, 2, 256, 512, 4096, 8192, 8193, 16384,
+                               65536, 1000, 20000])
+def test_sort_rows_kernel_matches_plain(U, dev):
+    r = np.random.default_rng(U)
+    key = _sort_keys(U, r)
     planes = [torch.from_numpy(key).to(dev)] + [
-        torch.from_numpy(r.integers(-(1 << 31), 1 << 31, (N, U))
+        torch.from_numpy(r.integers(-(1 << 31), 1 << 31, key.shape)
                          .astype(np.int32)).to(dev) for _ in range(8)]
     for P in (1, 2, 9):
         _assert_equal(sort.sort_rows(planes[:P]),
                       sort.sort_rows_ref(planes[:P]))
+
+
+@pytest.mark.parametrize("U", [300, 4096, 20000])
+def test_sort_rows_kernel_is_stable(U, dev):
+    """Rows of few distinct keys (only bit 31, only the high byte, or one
+    middle bit differing; small keys of both signs) keep equal keys in
+    column order, as ``torch.sort(stable=True)`` does: an unstable digit
+    pass would not."""
+    r = np.random.default_rng(U + 1)
+    key = np.stack([
+        np.where(r.integers(0, 2, U) == 1, -(1 << 31), 0),
+        (r.integers(0, 256, U) << 24) - (1 << 31),
+        r.choice([5, 5 | (1 << 20)], U),
+        r.integers(-3, 3, U)]).astype(np.int32)
+    key = torch.from_numpy(key).to(dev)
+    col = torch.arange(U, dtype=torch.int32, device=dev).expand(4, U)
+    col = col.contiguous()
+    s_key, idx = torch.sort(key, dim=1, stable=True)
+    _assert_equal(sort.sort_rows((key, col)), (s_key, col.gather(1, idx)))
+
+
+def test_sort_rows_kernel_on_hash_keys(dev):
+    """The match finder's hash keys on seeded bytes at LZNT1's shape,
+    [8208, 4096] (25 varying bits, 3 passes in one block), and on 64 KiB
+    rows (29 bits, 4 passes in tiles)."""
+    r = np.random.default_rng(23)
+    for N, U, pos_bits, passes in ((8208, 4096, 12, 3), (16, 65536, 16, 4)):
+        x = torch.from_numpy(r.integers(0, 256, (N, U), dtype=np.uint8))
+        key = match.hash_keys(x.to(dev), 13, pos_bits)
+        assert int(sort.digit_passes(key).min()) == passes
+        pos = torch.arange(U, dtype=torch.int32, device=dev).expand(N, U)
+        planes = (key, pos.contiguous())
+        _assert_equal(sort.sort_rows(planes), sort.sort_rows_ref(planes))
 
 
 def test_sort_rows_kernel_many_planes_and_refusals(dev):
