@@ -44,9 +44,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    batch on the card.  The run matcher, the row sort (the hash sort's key
    plane and the un-sort's two planes, each beside ``torch.sort`` (+
    ``gather``), the library call, with the digit passes its rows ran),
-   and the greedy walk with and without the layout sums, each against its
-   plain version on the same tensors, equal exactly; each one's time, its
-   plain version's and its bound.
+   and the greedy walk with and without the layout sums (with the rounds
+   its rows took), each against its plain version on the same tensors,
+   equal exactly; each one's time, its plain version's and its bound.
 8. Encode main path, with the encode kernels' launch counts set to 0
    first: ``tpucomp_torch.compress("lznt1", data)`` of the corpus, equal
    to ``compress(..., device="cpu")`` (the plain versions end to end) and
@@ -67,7 +67,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    kernels (fill, near walk, 4 KiB level, row level); then the encode
    kernels at [514, 65536]: the run matcher, the row sort of the hash key
    and of the un-sort (beside ``torch.sort`` + ``gather``) and the greedy
-   walk, each against its plain version, with their times.
+   walk (with its rounds, and its time on rows with no chain and on all
+   literals), each against its plain version, with their times.
 10. Xpress main path, with every launch count set to 0 first:
    ``decompress_batch("xpress", ...)`` of the 514 streams, equal to the
    units (16 sampled also to the native C decoder);
@@ -86,7 +87,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``torch.gather``; the run matcher, the row sort of the hash key and of
    the un-sort (no window bound, each beside ``torch.sort`` (+
    ``gather``), with its digit passes) and the greedy walk on the XH
-   rows.  Each against its plain version, equal exactly, with both times.
+   rows (with its rounds).  Each against its plain version, equal exactly, with both times.
 12. XH encode main path, with every launch count set to 0 first:
    ``compress_batch("xpress_huff", ...)`` of the 514 units and a one-shot
    ``compress`` of 200 KiB (four blocks); a sub-batch of 32 units (the
@@ -422,6 +423,18 @@ def sort_case(where, label, planes, reps=10, plain_reps=3):
     return err, ms, plain_ms, moved, lib_ms
 
 
+def walk_rounds(where, fn, n) -> None:
+    """Print the rounds the rows (of n positions) of the walk wrapper
+    ``fn``'s last launch took (max and mean), beside the most they could
+    take."""
+    from tpucomp_torch.kernels import commit
+
+    r = fn.rounds.float()
+    print(f"{fn.__name__} ({where}): rounds per row max {int(r.max())}, "
+          f"mean {float(r.mean()):.4f}, of at most "
+          f"{commit.segments(n)} (the row's segments)")
+
+
 def xh_units(units, rng) -> list:
     """The corpus's units of 64 KiB, one of random bytes from ``rng``
     (substep tier 3, the longest XH body) and one of zeros (tier 17)."""
@@ -723,11 +736,13 @@ def encode_phases(dev, data: bytes, native, native_stream: bytes,
     moved = nbytes(*walk_in, *got)
     show(f"greedy_commit_layout ({int(got[0].sum())} tokens)", ms, plain_ms,
          moved)
+    walk_rounds("LZNT1 encode", commit.greedy_commit_layout, U)
     _, com_err, com_ms, com_plain_ms = check(
         "greedy_commit", commit.greedy_commit, commit.greedy_commit_ref,
         walk_in, plain_reps=1)
     show("greedy_commit (no layout)", com_ms, com_plain_ms,
          nbytes(*walk_in) + N * U)
+    walk_rounds("LZNT1 encode", commit.greedy_commit, U)
     kernels.append(kernel_entry(
         "greedy_commit", "tpucomp/kernels/lz_pallas.py:146",
         max(lay_err, com_err), ms, plain_ms, moved))
@@ -1009,6 +1024,17 @@ def xpress_phases(dev, units, native, kernels) -> dict:
                       commit.greedy_commit_ref, (use_match, best_len, okpos),
                       plain_reps=1)
     print(f"greedy_commit: {int(committed.sum())} tokens")
+    walk_rounds("Xpress", commit.greedy_commit, UNIT)
+    # the same shape with no chain (staging and stores, 2 rounds of one
+    # step) and all literals (one round, every segment walks 128 steps)
+    for label, ok, m in (("okpos all false", False, use_match),
+                         ("all literals", okpos, torch.zeros_like(use_match))):
+        args = (m, best_len, okpos & ok)
+        ms = statistics.median(cuda_ms(lambda: commit.greedy_commit(*args),
+                                       reps=10))
+        r = commit.greedy_commit.rounds
+        print(f"greedy_commit (Xpress shape, {label}): kernel {ms:.4f} ms, "
+              f"rounds per row max {int(r.max())}")
     del best_len, use_match, okpos, committed
 
     # ---- 10. main path --------------------------------------------------------
@@ -1207,6 +1233,7 @@ def xh_encode_phases(dev, units, native, kernels) -> dict:
                                                             max_disp=None)
     committed = check("greedy_commit (no layout)", commit.greedy_commit,
                       commit.greedy_commit_ref, (use_match, best_len, okpos))
+    walk_rounds("XH encode", commit.greedy_commit, UNIT)
     sym = xh.symbols(x, best_len, best_disp, use_match, committed)
     lengths, codes = xh.code_tables(sym)
     print(f"xh encode: {int(committed.sum())} tokens, "

@@ -23,6 +23,7 @@ from tpucomp_torch.codecs import xpress_huff as xh
 from tpucomp_torch.kernels import commit, common, fill, gather, lznt1_parse
 from tpucomp_torch.kernels import match, resolve, runs, sort, xh_parse
 from tpucomp_torch.kernels import xp_parse
+from test_torch_commit import segment_walk, walk_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -331,7 +332,28 @@ def test_sort_rows_kernel_many_planes_and_refusals(dev):
         sort.sort_rows((key[:, ::2],))
 
 
-@pytest.mark.parametrize("N,n", [(70, 4096), (33, 1000), (1, 129)])
+def _hold_walk_to_plain(ins, dev):
+    """Both walks on the card against greedy_commit_ref (on the CPU),
+    one launch each; their rounds against the numpy model's.  Returns
+    the rounds."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in ins]
+    want = commit.greedy_commit_ref(*args, layout=True)
+    _, want_rounds = segment_walk(*ins)
+    nseg = commit.segments(args[0].shape[1])
+    for fn, w in ((commit.greedy_commit, want[:1]),
+                  (commit.greedy_commit_layout, want)):
+        before = fn.launches
+        got = fn(*(a.to(dev) for a in args))
+        assert fn.launches == before + 1
+        _assert_equal(got if isinstance(got, tuple) else (got,), w)
+        rounds = fn.rounds.cpu().numpy()
+        np.testing.assert_array_equal(rounds, want_rounds)
+        assert 1 <= rounds.min() and rounds.max() <= nseg
+    return want_rounds
+
+
+@pytest.mark.parametrize("N,n", [(70, 4096), (33, 1000), (1, 129),
+                                 (4, 65536), (3, 20000), (514, 4096)])
 def test_greedy_commit_kernel_matches_plain(N, n, dev):
     r = np.random.default_rng(N * n)
     is_match = r.random((N, n)) < 0.4
@@ -339,16 +361,41 @@ def test_greedy_commit_kernel_matches_plain(N, n, dev):
     best_len = r.integers(1, 90, (N, n)).astype(np.int32)
     okpos = np.ones((N, n), bool)
     okpos[-1, n // 3:] = False  # a short chunk
-    args = [torch.from_numpy(a).to(dev) for a in (is_match, best_len, okpos)]
-    before = (commit.greedy_commit.launches,
-              commit.greedy_commit_layout.launches)
-    _assert_equal([commit.greedy_commit(*args)],
-                  [commit.greedy_commit_ref(*args)])
-    _assert_equal(commit.greedy_commit_layout(*args),
-                  commit.greedy_commit_ref(*args, layout=True))
-    assert (commit.greedy_commit.launches,
-            commit.greedy_commit_layout.launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    _hold_walk_to_plain((is_match, best_len, okpos), dev)
+
+
+@pytest.mark.parametrize("n", [129, 4096, 20000, 65536])
+def test_greedy_commit_kernel_on_edge_rows(n, dev):
+    """A constant jump, a row whose segment chains never meet (one round
+    a segment), jumps to n and past it (65536 at p = 0), negative, zero
+    and INT32_MAX lengths with is_match set, okpos holes, an all-false
+    okpos row."""
+    names, *ins = walk_rows(n, seed=n, wide=True)
+    rounds = _hold_walk_to_plain(ins, dev)
+    assert rounds[names.index("never meets")] == commit.segments(n)
+
+
+def test_greedy_commit_kernel_refuses_what_it_does_not_take(dev):
+    wide = torch.zeros((1, commit.MAX_ROW + 1), dtype=torch.bool, device=dev)
+    args = (wide, wide.int(), wide)
+    with pytest.raises(ValueError, match="at most 65536"):
+        commit.greedy_commit(*args)
+    with pytest.raises(ValueError, match="contiguous"):
+        commit.greedy_commit_layout(*(a[:, ::2] for a in args))
+
+
+def test_greedy_commit_kernel_on_matches_of_text(dev):
+    """The lengths xp.find_matches gives on seeded text at 64 KiB, one
+    unit full and one short (okpos false past its end)."""
+    text = _encode_inputs() * 4
+    units = np.frombuffer(text[:2 * 65536], np.uint8).reshape(2, 65536)
+    ulen = torch.tensor([65536, 40000], dtype=torch.int32, device=dev)
+    best_len, _, use_match, okpos = xp.find_matches(
+        torch.from_numpy(units.copy()).to(dev), ulen)
+    rounds = _hold_walk_to_plain(
+        [t.cpu().numpy() for t in (use_match, best_len, okpos)], dev)
+    assert (best_len > 256).any()  # long matches span segments
+    assert rounds.max() < commit.segments(65536)
 
 
 def test_hash_best_match_on_card_matches_cpu(dev):

@@ -18,6 +18,7 @@ import torch
 from jax import lax
 
 from conftest import make_corpus
+from test_torch_commit import walk_rows
 from tpucomp.kernels import common as t_common
 from tpucomp.kernels import lz_pallas, runs_pallas, sort_pallas
 from tpucomp_torch.kernels import commit, match, runs, sort
@@ -139,10 +140,8 @@ def _numpy_walk(is_match, best_len, okpos):
     return com, ta, db
 
 
-@pytest.mark.parametrize("n", [512, 1000])
-def test_greedy_commit_matches_tpucomp(n):
-    ins = _walk_inputs(9, n, seed=n)
-    tins = [torch.from_numpy(a) for a in ins]
+def _hold_walk_to_tpucomp(ins):
+    tins = [torch.from_numpy(np.ascontiguousarray(a)) for a in ins]
     jins = [jnp.asarray(a) for a in ins]
     got = commit.greedy_commit(*tins).numpy()
     assert got.dtype == bool
@@ -159,6 +158,21 @@ def test_greedy_commit_matches_tpucomp(n):
     for g, w in zip((com, ta, db), _numpy_walk(*ins)):
         np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(com, got)
+
+
+@pytest.mark.parametrize("n", [512, 1000])
+def test_greedy_commit_matches_tpucomp(n):
+    _hold_walk_to_tpucomp(_walk_inputs(9, n, seed=n))
+
+
+@pytest.mark.parametrize("n", [129, 1000])
+def test_greedy_commit_edge_rows_match_tpucomp(n):
+    """Long jumps (to n and past it), a constant jump, a row whose
+    segment chains never meet, zero lengths with is_match set, okpos holes
+    mid-row, an all-false okpos row; lengths below tpucomp's 2^20."""
+    _, *ins = walk_rows(n, seed=n + 1)
+    assert 0 <= ins[1].min() and ins[1].max() < 1 << 20
+    _hold_walk_to_tpucomp(ins)
 
 
 def _match_rows(n, seed):

@@ -17,6 +17,19 @@ a cursor ``nc`` that starts at 0:
 ``csrc/greedy_commit.cu`` (one kernel, a layout flag) on CUDA tensors and
 run :func:`greedy_commit_ref` on CPU tensors.  tpucomp's kernel packs the
 commit bits 32 to a word; both packages return them unpacked, as bool.
+
+The committed positions are the chain 0 -> next(0) -> ..., next(p) = p +
+(best_len[p] if is_match[p] else 1), which ends at a position that cannot
+commit, and after one whose jump is 0 or less or reaches n.  Chains from
+different starts that meet are equal from there on, so the kernel walks
+a row in segments of :data:`SEG` positions at once, each from its own
+first position, then repairs in rounds the segments whose entry (the
+largest exit of the segments before) changed, until none changes: at
+most one round a segment (:func:`segments`), about 4 a row on the corpus
+of ``chip_smoke.py``.  Each wrapper keeps the round count of every row
+of its last launch as ``rounds`` (int32 [N] on the card), as it keeps
+``launches``.  Rows on the card have at most :data:`MAX_ROW` positions
+(the kernel stores jumps as uint16).
 """
 
 from __future__ import annotations
@@ -24,6 +37,14 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+SEG = 128  # positions a thread of the kernel walks: csrc/greedy_commit.cu
+MAX_ROW = 1 << 16
+
+
+def segments(n: int) -> int:
+    """The segments of a row of n positions: the most rounds it can take."""
+    return -(-n // SEG)
 
 
 def _check(is_match, best_len, okpos):
@@ -64,16 +85,20 @@ def _walk(is_match, best_len, okpos, layout: bool):
     if not all(t.is_contiguous() for t in (is_match, best_len, okpos)):
         raise ValueError("is_match, best_len and okpos must be contiguous")
     N, n = is_match.shape
-    committed = torch.empty((N, n), dtype=torch.bool, device=is_match.device)
+    if n > MAX_ROW:
+        raise ValueError(f"rows of at most {MAX_ROW} positions, not {n}")
+    dev = is_match.device
+    committed = torch.empty((N, n), dtype=torch.bool, device=dev)
     t_after = torch.empty((N, n) if layout else (0,), dtype=torch.int32,
-                          device=is_match.device)
+                          device=dev)
     data_before = torch.empty_like(t_after)
+    rounds = torch.ones(N, dtype=torch.int32, device=dev)
     launched = bool(N and n)
     if launched:
         _build.launch("greedy_commit",
                       [is_match, best_len, okpos, committed, t_after,
-                       data_before], [N, n, int(layout)])
-    return launched, committed, t_after, data_before
+                       data_before, rounds], [N, n, int(layout)])
+    return launched, committed, t_after, data_before, rounds
 
 
 def greedy_commit(is_match: torch.Tensor, best_len: torch.Tensor,
@@ -86,8 +111,10 @@ def greedy_commit(is_match: torch.Tensor, best_len: torch.Tensor,
     """
     if not _build.use_kernel(is_match, best_len, okpos):
         return greedy_commit_ref(is_match, best_len, okpos)
-    launched, committed, _, _ = _walk(is_match, best_len, okpos, False)
+    launched, committed, _, _, rounds = _walk(is_match, best_len, okpos,
+                                              False)
     greedy_commit.launches += launched
+    greedy_commit.rounds = rounds
     return committed
 
 
@@ -100,11 +127,14 @@ def greedy_commit_layout(is_match: torch.Tensor, best_len: torch.Tensor,
     """
     if not _build.use_kernel(is_match, best_len, okpos):
         return greedy_commit_ref(is_match, best_len, okpos, layout=True)
-    launched, committed, t_after, data_before = _walk(
+    launched, committed, t_after, data_before, rounds = _walk(
         is_match, best_len, okpos, True)
     greedy_commit_layout.launches += launched
+    greedy_commit_layout.rounds = rounds
     return committed, t_after, data_before
 
 
 greedy_commit.launches = 0
 greedy_commit_layout.launches = 0
+greedy_commit.rounds = None
+greedy_commit_layout.rounds = None
