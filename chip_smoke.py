@@ -30,7 +30,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    Every XH kernel against its plain version on the same CUDA tensors,
    equal exactly, and both times.  The parse's plain version loops once
    per body byte, so it runs on a sub-batch of short rows (the shortest
-   corpus streams and the malformed rows), and the kernel with it.
+   corpus streams and the malformed rows), and the kernel with it.  The
+   parse's rounds per row (corpus rows and tier-3 rows apart), and its
+   time on the whole batch, the sub-batch and the random unit alone.
 6. XH main path, with every launch count set to 0 first:
    ``decompress_batch("xpress_huff", ...)`` of the 514 units, equal to
    them (16 sampled units also to the native C decoder); the same units
@@ -435,6 +437,25 @@ def walk_rounds(where, fn, n) -> None:
           f"{commit.segments(n)} (the row's segments)")
 
 
+def xh_parse_rounds(ss, n_corpus) -> None:
+    """Print the rounds the rows of the XH parse's last launch took (max
+    and mean): the corpus rows (``n_corpus`` first), the tier-3 rows
+    (``ss`` 3: segments re-decoded) and the other rows apart."""
+    import torch
+
+    from tpucomp_torch.kernels import xh_parse
+
+    r = xh_parse.xh_parse.rounds.float()
+    corpus = torch.arange(len(r), device=r.device) < n_corpus
+    tier3 = ss == 3
+    parts = [("corpus rows", corpus & ~tier3),
+             ("tier-3 rows (segments re-decoded)", tier3),
+             ("other rows", ~corpus & ~tier3)]
+    print("xh_parse rounds per row: " + "; ".join(
+        f"{label} ({int(m.sum())}): max {int(r[m].max())}, mean "
+        f"{float(r[m].mean()):.4f}" for label, m in parts if bool(m.any())))
+
+
 def xh_units(units, rng) -> list:
     """The corpus's units of 64 KiB, one of random bytes from ``rng``
     (substep tier 3, the longest XH body) and one of zeros (tier 17)."""
@@ -496,6 +517,15 @@ def xh_phases(dev, units, native, kernels) -> dict:
         lambda: xh_parse.xh_parse(*sub_args, UNIT), reps=5))
     parse_ms = statistics.median(cuda_ms(
         lambda: xh_parse.xh_parse(*args, UNIT), reps=5))
+    xh_parse_rounds(batch[3], n_corpus)
+    # the tier-3 random unit alone: the row that sets the whole batch's time
+    one = tuple(a[n_corpus:n_corpus + 1] for a in args)
+    parse_one_ms = statistics.median(cuda_ms(
+        lambda: xh_parse.xh_parse(*one, UNIT), reps=5))
+    print(f"xh_parse: the random unit alone ([1, {one[0].shape[1]}], body "
+          f"{int(one[1][0])} bytes, substep tier {int(one[3][0])}) "
+          f"{parse_one_ms:.4f} ms, {int(xh_parse.xh_parse.rounds[0])} "
+          "segments re-decoded")
     # the body bytes as far as each row's length, the rest of the inputs
     # and the record planes whole (the whole batch here, the sub-batch in
     # the kernel's entry)

@@ -24,6 +24,9 @@ from tpucomp_torch.kernels import commit, common, fill, gather, lznt1_parse
 from tpucomp_torch.kernels import match, resolve, runs, sort, xh_parse
 from tpucomp_torch.kernels import xp_parse
 from test_torch_commit import segment_walk, walk_rows
+from test_torch_xh_segment import (KINDS, Row, boundary_states, code_lengths,
+                                   rows_batch, segment_parse, storm_tokens,
+                                   table_bytes, write_stream)
 
 pytestmark = pytest.mark.cuda
 
@@ -147,17 +150,106 @@ def _xh_batch(dev, native):
     return xh.pack_units(streams, lens, XU, dev), units
 
 
+def _hold_xh_parse(args, U, ref=True):
+    """The parse kernel, one launch, against xh_parse_ref on the CPU (or,
+    with ``ref`` False, the segment model alone, itself held to
+    xh_parse_ref on the CPU); its rounds against the segment model's.
+    Returns the plain version's outputs (on the CPU) and the rounds."""
+    cpu = [a.cpu() for a in args]
+    *model, rounds = (torch.from_numpy(a) for a in segment_parse(
+        *(a.numpy() for a in cpu), U))
+    want = xh_parse.xh_parse_ref(*cpu, U) if ref else model
+    if ref:
+        _assert_equal(model, want)
+    before = xh_parse.xh_parse.launches
+    got = xh_parse.xh_parse(*(a.cuda() for a in args), U)
+    assert xh_parse.xh_parse.launches == before + 1
+    _assert_equal(got, want)
+    assert torch.equal(xh_parse.xh_parse.rounds.cpu(), rounds)
+    return want, rounds
+
+
 def test_xh_parse_kernel_matches_plain(dev):
     batch, units = _xh_batch(dev, Native())
     args = xh.parse_inputs(*batch)
-    before = xh_parse.xh_parse.launches
-    got = xh_parse.xh_parse(*args, XU)
-    assert xh_parse.xh_parse.launches == before + 1
-    want = xh_parse.xh_parse_ref(*args, XU)
-    _assert_equal(got, want)
-    bad = ((want[3] != 0) | (want[2] < batch[2])).cpu()
+    want, _ = _hold_xh_parse(args, XU)
+    bad = ((want[3] != 0) | (want[2] < batch[2].cpu()))
     assert not bad[:len(units) + 1].any() and bad[len(units) + 1:].sum() >= 2
     assert set(batch[3].tolist()) >= {3, 5, 17}
+
+
+def test_xh_parse_kernel_refuses_wider_bodies(dev):
+    args = list(xh.parse_inputs(*_xh_batch(dev, Native())[0]))
+    args[0] = torch.zeros((args[0].shape[0], xh_parse.MAX_BODY + 16),
+                          dtype=torch.uint8, device=dev)
+    before = xh_parse.xh_parse.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        xh_parse.xh_parse(*args, XU)
+    assert xh_parse.xh_parse.launches == before
+
+
+def _segment_rows():
+    """Rows at U = 65536 rich in what a segment boundary can fall on, at
+    tiers 5 and 3: escapes of 1 byte (each flips the word parity), u16
+    and u32 escapes, far offsets; the wrap row (a u32 length of 2**31 -
+    3); a body shorter than a segment (tier 5, and tier 3 with segments
+    too short for sub-segments), an empty body, one shorter than the
+    table, a row cut inside its stream."""
+    r = np.random.default_rng(21)
+    rows = []
+    for tier in (5, 3):
+        for kinds in (("u16", "esc8", "far"), ("u32", "esc8")):
+            rows.append(write_stream(code_lengths(tier),
+                                     storm_tokens(r, 60000, kinds)))
+    ln = code_lengths(5)
+    rows.append((write_stream(ln, [("lit", 1)] * 20 + [("match", 3, 2**31)]
+                              + [("lit", 2)] * 30)[0], 1000))
+    short = write_stream(ln, [("lit", 65), ("lit", 66), ("match", 1, 5)])
+    short3 = write_stream(code_lengths(3), [("lit", i % 128)
+                                            for i in range(300)])
+    rows += [short, short3, (table_bytes(ln), 10),
+             (table_bytes(ln)[:100], 50),
+             (rows[0][0][:len(rows[0][0]) // 2 | 1], rows[0][1])]
+    return rows
+
+
+def test_xh_parse_kernel_on_segment_rows(dev):
+    """Each kind of boundary state lands on a segment boundary of the
+    kernel's own geometry in some row."""
+    U = 1 << 16
+    args = rows_batch(_segment_rows(), U)
+    _hold_xh_parse(args, U)
+    hit = set()
+    for n in range(4):
+        row = Row(*(a[n].numpy() for a in args), U)
+        S, nseg = xh_parse.segments(row.blen, row.ss)
+        states = boundary_states(row)
+        hit |= {kind for kind, f in KINDS.items()
+                for t in range(1, nseg) if f(states[t * S])}
+    assert hit == set(KINDS)
+
+
+def test_xh_parse_kernel_on_a_random_unit(dev):
+    """64 KiB of seeded random bytes (tier 3), alone and beside a short
+    row, against the segment model (xh_parse_ref takes minutes here);
+    then 80 copies of it in one launch behind the short row, each equal
+    to the model's row (every tier-3 row of a launch takes the same
+    path)."""
+    r = np.random.default_rng(22)
+    unit = r.integers(0, 256, 1 << 16, dtype=np.uint8).tobytes()
+    stream = Native().xh_compress(unit)
+    text = _xh_units()[0]
+    short = (Native().xh_compress(text), len(text))
+    for rows in ([(stream, 1 << 16)], [short, (stream, 1 << 16)]):
+        args = rows_batch(rows, 1 << 16)
+        assert int(args[3][-1]) == 3
+        want, rounds = _hold_xh_parse(args, 1 << 16, ref=False)
+        assert int(want[2][-1]) == 1 << 16 and int(want[3][-1]) == 0
+    args = rows_batch([short] + [(stream, 1 << 16)] * 80, 1 << 16)
+    got = xh_parse.xh_parse(*(a.cuda() for a in args), 1 << 16)
+    _assert_equal([g[1:] for g in got], [w[1:].expand(80, *w.shape[1:])
+                                          for w in want])
+    assert (xh_parse.xh_parse.rounds[1:].cpu() == rounds[1]).all()
 
 
 def test_fill_kernel_matches_plain(dev):
@@ -228,6 +320,28 @@ def test_xh_decode_batch_on_card_matches_cpu(fast_resolve, dev):
     out = got[0].cpu().numpy()
     for k, u in enumerate(units):
         assert out[k, :len(u)].tobytes() == u
+
+
+@pytest.mark.parametrize("fast_resolve", [False, True])
+def test_xh_decode_batch_on_card_matches_cpu_at_64k(fast_resolve, dev):
+    """64 KiB units with short bodies (the plain parse loops once per body
+    byte on the CPU): periodic, repeated text, zeros, and their archive
+    (resolved) encodings."""
+    native = Native()
+    text = _xh_units()[0]
+    units = [(b"abcabd" * 11000)[:65536], (text * 14)[:65536], bytes(65536)]
+    streams = [native.xh_compress(u) for u in units]
+    streams += [native.xh_compress_opt(u, Native.OPT_RESOLVE_OFFSETS | 2 << 8)
+                for u in units[:2]]
+    lens = [65536] * len(streams)
+    batch = xh.pack_units(streams, lens, 65536, dev)
+    got = xh.decode_batch(*batch, 65536, fast_resolve=fast_resolve)
+    want = xh.decode_batch(*(t.cpu() for t in batch), 65536,
+                           fast_resolve=fast_resolve)
+    _assert_equal(got, want)
+    out = got[0].cpu().numpy()
+    for k, u in enumerate(units + units[:2]):
+        assert out[k].tobytes() == u
 
 
 def _byte_rows(U, seed):

@@ -134,7 +134,7 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 
 
 def launch(name: str, tensors: list[torch.Tensor], ints: list[int],
-           tables: tuple = ()) -> None:
+           tables: tuple = (), lib: ctypes.CDLL | None = None) -> None:
     """Launch the library's entry point ``name`` on PyTorch's current
     stream of the tensors' device; raise if the launch failed.
 
@@ -142,12 +142,15 @@ def launch(name: str, tensors: list[torch.Tensor], ints: list[int],
     array of device pointers for each list of tensors in ``tables`` (the
     entry point copies it into the kernel's parameters before it
     returns), then ``ints`` as C ints, then the stream, and returns
-    ``cudaGetLastError()``.  The library is built and loaded on first use.
+    ``cudaGetLastError()``.  The library is built and loaded on first use;
+    ``lib``, if given, is another build of the entry point to launch.
     """
     global _lib
-    if _lib is None:
-        _lib = ctypes.CDLL(build()[0])
-    fn = getattr(_lib, name)
+    if lib is None:
+        if _lib is None:
+            _lib = ctypes.CDLL(build()[0])
+        lib = _lib
+    fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + len(tables))
                    + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int

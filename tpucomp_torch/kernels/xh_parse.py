@@ -1,5 +1,5 @@
 """Xpress Huffman decode parse: the canonical-Huffman byte machine, one
-block per row.
+block per row, decoded in segments at once.
 
 Counterpart of ``tpucomp/kernels/xh_pallas.py`` ``parse_records`` ([MS-XCA]
 §2.2).  :func:`xh_parse` launches ``csrc/xh_parse.cu`` on CUDA tensors and
@@ -16,6 +16,17 @@ is in slot k of the ``[N, U]`` planes.  ``rec_pos`` is its output position,
 ``rec_val`` the literal symbol or ``COPY_BIT | offset``; empty slots hold
 ``SENT`` and 0.  Positions strictly increase along a row, so a row has at
 most ``out_len <= U`` records.
+
+The kernel cuts each body into segments (:func:`segments`), decodes them
+all at once from guessed entry states, and re-decodes in rounds those
+whose true entry (the exit of the segment before) differs, until none
+does; tier-3 rows (every code 8 bits or more, where a wrong guess never
+resynchronises) decode each segment under ``HYP`` entry hypotheses
+instead and resolve them left to right.  Exact on every input
+(``tests/test_torch_xh_segment.py`` models it in numpy).  The wrapper
+keeps each row's count of rounds (tier 3: segments re-decoded) of its
+last launch as ``xh_parse.rounds`` (int32 [N] on the card), as it keeps
+``launches``.
 """
 
 from __future__ import annotations
@@ -33,6 +44,30 @@ SENT = SENT_KEY
 _M_W0, _M_W1, _M_EB, _M_E16A, _M_E16B = 0, 1, 2, 3, 4
 _M_E32A, _M_E32B, _M_E32C, _M_E32D = 5, 6, 7, 8
 _P_NONE, _P_OFFSET, _P_ESC = 0, 1, 2
+
+# the kernel's geometry: csrc/xh_parse.cu
+THREADS = 256  # threads a row
+HYP = 8  # entry hypotheses of a tier-3 segment (THREADS // HYP segments)
+HYP_LO = 8  # their leftover bit counts: HYP_LO to HYP_LO + HYP - 1
+WARM = 32  # bytes a segment decodes before its start for its first guess
+SEG_MIN = 64  # least bytes of a segment, tier 3 aside
+MAX_BODY = 160 << 10  # body bytes a row can stage in shared memory
+REC = 7  # ints of a state a tier-3 hypothesis records for the final pass
+
+
+def segments(blen: int, ss: int) -> tuple[int, int]:
+    """(S, nseg): the kernel's segment length for a body of ``blen`` bytes
+    at substep tier ``ss``, and its count of segments (0 when the body is
+    empty).  S is 4 times an odd number, so that segments' words fall in
+    different shared-memory banks, and at least ceil(blen / parts):
+    ``THREADS // HYP`` parts at tier 3, else ``THREADS`` (and at least
+    ``SEG_MIN`` bytes)."""
+    if blen <= 0:
+        return 0, 0
+    parts = THREADS // HYP if ss == 3 else THREADS
+    seg = max(-(-blen // parts), 1 if ss == 3 else SEG_MIN)
+    S = 4 * ((-(-seg // 4)) | 1)
+    return S, -(-blen // S)
 
 
 def _check(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U):
@@ -224,15 +259,28 @@ def xh_parse(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U: int):
     ins = [t.contiguous() for t in (body, blen, out_len, ss, lim15, rbf,
                                     sym_by_rank)]
     N, Pb = body.shape
+    if Pb > MAX_BODY:
+        raise ValueError(f"bodies of at most {MAX_BODY} bytes, not {Pb} (the "
+                         "kernel stages a row's body in shared memory)")
     rec_pos = torch.empty((N, U), dtype=torch.int32, device=body.device)
     rec_val = torch.empty_like(rec_pos)
     p_final = torch.empty((N,), dtype=torch.int32, device=body.device)
     err = torch.empty_like(p_final)
+    rounds = torch.empty_like(p_final)
     if N:
-        _build.launch("xh_parse", ins + [rec_pos, rec_val, p_final, err],
-                      [N, Pb, U])
+        # tier-3 rows take the longest: their blocks go first
+        order = torch.argsort((ins[3] != 3).to(torch.uint8),
+                              stable=True).to(torch.int32)
+        # the states a tier-3 row records for its final pass (THREADS
+        # hypotheses x HYP - 1 sub-segment starts), 49 KiB a row
+        scratch = torch.empty((N, THREADS, HYP - 1, REC), dtype=torch.int32,
+                              device=body.device)
+        _build.launch("xh_parse", ins + [order, rec_pos, rec_val, p_final,
+                                         err, rounds, scratch], [N, Pb, U])
         xh_parse.launches += 1
+        xh_parse.rounds = rounds
     return rec_pos, rec_val, p_final, err
 
 
 xh_parse.launches = 0
+xh_parse.rounds = None
