@@ -65,7 +65,11 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    Xpress encoder, plus 32 seeded malformed rows, in one batch.  The
    parse against its plain version on a sub-batch of short rows (the
    shortest corpus streams and the malformed rows: the plain version
-   loops once per payload byte), and on the whole batch the decode tail's
+   loops once per payload byte); the parse's skeleton steps per row
+   (corpus rows and the random unit apart), the occupancy it reached, and
+   its time on the whole batch, the sub-batch, the random unit alone and
+   514 units of seeded random bytes (decoding back); on the whole batch
+   the decode tail's
    kernels (fill, near walk, 4 KiB level, row level); then the encode
    kernels at [514, 65536]: the run matcher, the row sort of the hash key
    and of the un-sort (beside ``torch.sort`` + ``gather``) and the greedy
@@ -931,6 +935,63 @@ def xp_malformed(native, units, streams, idx, rng):
     return rows
 
 
+def xp_parse_steps(n_corpus) -> None:
+    """Print the skeleton walk's steps (flag words and matches) of the rows
+    of the parse's last launch on phase 9's batch: the corpus rows (the
+    first ``n_corpus``), the random unit and the zeros after them, and the
+    malformed rows; then the occupancy the kernel reached."""
+    from tpucomp_torch.kernels import _build, xp_parse
+
+    st = xp_parse.xp_parse.steps.cpu()
+    parts = [("corpus rows", st[:n_corpus]),
+             ("random unit", st[n_corpus:n_corpus + 1]),
+             ("zeros unit", st[n_corpus + 1:n_corpus + 2]),
+             ("malformed rows", st[n_corpus + 2:])]
+    print("xp_parse skeleton steps per row: " + "; ".join(
+        f"{label} ({len(v)}): max {int(v.max())}, mean "
+        f"{float(v.float().mean()):.4f}" for label, v in parts))
+    out = (ctypes.c_int * 6)()
+    lib = ctypes.CDLL(_build.build()[0])
+    require(lib.xp_parse_occupancy(out) == 0, "xp_parse_occupancy failed")
+    print(f"xp_parse occupancy: {out[0]} blocks (rows) an SM, {out[1]} "
+          f"registers a thread, {out[2]} bytes of shared memory a block "
+          f"(byte-load build: {out[3]}, {out[4]}, {out[5]})")
+
+
+def xp_parse_alone(dev, batch, n_corpus, native, rng) -> None:
+    """Time the parse on phase 9's random unit alone, and on a batch of
+    514 units of seeded random bytes (every row about 2,048 flag words,
+    nearly all of 32 literals: the most records for the emission), which
+    must decode back."""
+    import torch
+
+    from tpucomp_torch.codecs import xpress as xp
+    from tpucomp_torch.kernels import xp_parse
+
+    one = tuple(a[n_corpus:n_corpus + 1] for a in batch)
+    one_ms = statistics.median(cuda_ms(
+        lambda: xp_parse.xp_parse(*one, UNIT), reps=10))
+    rand = [rng.integers(0, 256, UNIT, dtype=np.uint8).tobytes()
+            for _ in range(n_corpus + 2)]
+    rb = xp.pack_units([native.xpress_compress(u) for u in rand],
+                       [UNIT] * len(rand), UNIT, dev)
+    out, err = xp.decode_batch(*rb, UNIT)
+    want = torch.from_numpy(np.frombuffer(b"".join(rand), np.uint8).reshape(
+        len(rand), UNIT)).to(dev)
+    require(not bool(err.any()) and torch.equal(out, want),
+            "the random units do not decode back")
+    many_ms = statistics.median(cuda_ms(
+        lambda: xp_parse.xp_parse(*rb, UNIT), reps=5))
+    st = xp_parse.xp_parse.steps
+    # as phase 9's bound: the payload as far as plen, the record planes
+    moved = int(rb[1].sum()) + nbytes(*rb[1:], *xp_parse.xp_parse(*rb, UNIT))
+    print(f"xp_parse: the random unit alone {one_ms:.4f} ms; "
+          f"{len(rand)} random units ({rb[0].shape[1]} payload bytes a row, "
+          f"skeleton steps {int(st.min())} to {int(st.max())}) "
+          f"{many_ms:.4f} ms, decoding back, bound "
+          f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
+
+
 def xpress_phases(dev, units, native, kernels) -> dict:
     """Phases 9 and 10, plain Xpress.  Adds the parse's entry to
     ``kernels`` (and the Xpress comparisons of the other kernels to
@@ -1005,6 +1066,8 @@ def xpress_phases(dev, units, native, kernels) -> dict:
           f"the whole batch ({N} rows, longest {int(batch[1].max())} bytes, "
           f"{int(batch[1].sum())} in all) {parse_ms:.4f} ms, bound "
           f"{whole / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    xp_parse_steps(n_corpus)
+    xp_parse_alone(dev, batch, n_corpus, native, rng)
     kernels.append(kernel_entry(
         "xp_parse", "tpucomp/kernels/xp_pallas.py:211", parse_err,
         parse_sub_ms, parse_plain_ms,

@@ -24,6 +24,8 @@ from tpucomp_torch.kernels import commit, common, fill, gather, lznt1_parse
 from tpucomp_torch.kernels import match, resolve, runs, sort, xh_parse
 from tpucomp_torch.kernels import xp_parse
 from test_torch_commit import segment_walk, walk_rows
+from test_torch_xp_walk import literals, design_rows, pack, walk_steps
+from test_torch_xp_walk import write_stream as xp_write_stream
 from test_torch_xh_segment import (KINDS, Row, boundary_states, code_lengths,
                                    rows_batch, segment_parse, storm_tokens,
                                    table_bytes, write_stream)
@@ -553,8 +555,9 @@ def test_compress_on_card_matches_cpu_and_round_trips(dev):
 
 def _xp_rows(native):
     """Plain Xpress (stream, out_len) rows: native C units of 64 KiB and
-    shorter, then malformed ones (cut short, a match before the start, and
-    a u32 length that wraps int32 and moves the position backwards)."""
+    shorter (a row of zeros among them: few, long matches), then malformed
+    ones (cut short, a match before the start, and a u32 length that wraps
+    int32 and moves the position backwards)."""
     r = np.random.default_rng(31)
     units = [_encode_inputs()[:12000], bytes(65536),
              r.integers(0, 256, 3000, dtype=np.uint8).tobytes(),
@@ -569,18 +572,55 @@ def _xp_rows(native):
     return rows, units
 
 
-def test_xp_parse_kernel_matches_plain(dev):
-    rows, units = _xp_rows(Native())
-    batch = xp.pack_units([s for s, _ in rows], [n for _, n in rows],
-                          65536, dev)
+def _xp_parse_launch(batch, U):
+    """One launch of the parse: its outputs, the launch counted once, the
+    walk's steps equal to the numpy model's."""
     before = xp_parse.xp_parse.launches
-    got = xp_parse.xp_parse(*batch, 65536)
+    got = xp_parse.xp_parse(*batch, U)
     assert xp_parse.xp_parse.launches == before + 1
-    want = xp_parse.xp_parse_ref(*batch, 65536)
-    _assert_equal(got, want)
-    bad = ((want[3] != 0) | (want[2] < batch[2])).cpu()
-    assert not bad[:len(units)].any() and bad[len(units):].all()
-    assert want[2][-1] == 3 - (1 << 31) and want[3][-1] == 0  # the wrap
+    torch.cuda.synchronize()
+    want_steps = walk_steps(*(t.cpu().numpy() for t in batch), U)
+    assert xp_parse.xp_parse.steps.cpu().tolist() == want_steps.tolist()
+    return got
+
+
+@pytest.mark.parametrize(
+    "rows", ["units", "design", "design, byte loads", "random x80"])
+def test_xp_parse_kernel_matches_plain(rows, dev):
+    """The kernel against the plain parse, exactly: native C units and
+    malformed rows at 64 KiB; the rows built for the skeleton walk's edges
+    (tests/test_torch_xp_walk.py) at 4096, one with out_len past U, also
+    at a payload width that is no multiple of 16 (the kernel's build with
+    byte loads and stores); and 80 copies of a 64 KiB unit of random bytes
+    (flag words of 32 literals) in one launch, against the plain parse of
+    one copy."""
+    if rows == "units":
+        rows, units = _xp_rows(Native())
+        batch = xp.pack_units([s for s, _ in rows], [n for _, n in rows],
+                              65536, dev)
+        got = _xp_parse_launch(batch, 65536)
+        want = xp_parse.xp_parse_ref(*batch, 65536)
+        _assert_equal(got, want)
+        bad = ((want[3] != 0) | (want[2] < batch[2])).cpu()
+        assert not bad[:len(units)].any() and bad[len(units):].all()
+        assert want[2][-1] == 3 - (1 << 31) and want[3][-1] == 0  # the wrap
+    elif rows.startswith("design"):
+        payload, plen, olen = pack(list(design_rows().values()))
+        if rows == "design, byte loads":
+            payload = np.pad(payload, ((0, 0), (0, 5)))
+        batch = [torch.from_numpy(a).to(dev) for a in (payload, plen, olen)]
+        got = _xp_parse_launch(batch, 4096)
+        _assert_equal(got, xp_parse.xp_parse_ref(*batch, 4096))
+    else:
+        rand, _ = xp_write_stream(literals(65536, 20))
+        one = [torch.from_numpy(a).to(dev)
+               for a in pack([(rand, len(rand), 65536)])]
+        batch = [t.expand(80, *t.shape[1:]).contiguous() for t in one]
+        got = _xp_parse_launch(batch, 65536)
+        # the plain parse on the host: a loop of 73,712 small steps
+        want = xp_parse.xp_parse_ref(*(t.cpu() for t in one), 65536)
+        _assert_equal(got, [w.expand(80, *w.shape[1:]) for w in want])
+        assert (xp_parse.xp_parse.steps == 65536 // 32).all()
 
 
 def test_xpress_decode_on_card_matches_cpu(dev):

@@ -3,7 +3,11 @@
 Counterpart of ``tpucomp/kernels/xp_pallas.py`` ``parse_records`` and of
 the XLA scan in ``tpucomp/codecs/xpress.py`` ``_decode_impl`` ([MS-XCA]
 §2.4).  :func:`xp_parse` launches ``csrc/xp_parse.cu`` on CUDA tensors and
-runs :func:`xp_parse_ref` on CPU tensors.
+runs :func:`xp_parse_ref` on CPU tensors.  The kernel walks each row's
+skeleton (flag word to flag word, in rounds of a warp) while three more
+warps emit the records window by window behind it (see its source note);
+it keeps each row's count of walk steps (flag words plus matches) of its
+last launch as ``xp_parse.steps`` (int32 [N] on the card).
 
 Each payload byte is one step: a byte of a little-endian 32-bit flag word
 (consumed MSB first), a literal or a match's low byte, its high byte, a
@@ -32,6 +36,11 @@ from .common import SENT_KEY
 MIN_MATCH = 3
 COPY_BIT = 1 << 20
 SENT = SENT_KEY
+# the kernel's geometry (csrc/xp_parse.cu): a flag word and its 32 tokens
+# span at least WORD_MIN bytes, so a row holds at most P // WORD_MIN + 1
+# flag words, each with a 4-int entry state in scratch
+WORD_MIN = 36
+ENTRY = 4
 
 # modes, as in tpucomp's codecs/xpress
 _M_F3 = 3  # flag word bytes 0-3 are modes 0-3
@@ -215,12 +224,18 @@ def xp_parse(payload: torch.Tensor, plen: torch.Tensor,
     rec_val = torch.empty_like(rec_pos)
     p_final = torch.empty_like(plen)
     err = torch.empty_like(plen)
+    steps = torch.empty_like(plen)
     if N:
+        max_words = P // WORD_MIN + 2
+        entries = torch.empty((N, max_words, ENTRY), dtype=torch.int32,
+                              device=payload.device)
         _build.launch("xp_parse",
-                      [payload, plen, out_len, rec_pos, rec_val, p_final, err],
-                      [N, P, U])
+                      [payload, plen, out_len, rec_pos, rec_val, p_final, err,
+                       steps, entries], [N, P, U, max_words])
         xp_parse.launches += 1
+        xp_parse.steps = steps
     return rec_pos, rec_val, p_final, err
 
 
 xp_parse.launches = 0
+xp_parse.steps = None
