@@ -13,7 +13,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 3. LZNT1 kernel vs plain: each kernel against its plain PyTorch version on the
    same CUDA tensors at the main path's shape (one row per chunk of the
    corpus, 256 rows replaced by seeded malformed ones), equal exactly;
-   then each one's time, CUDA-event timed after a warm-up.
+   then each one's time, CUDA-event timed after a warm-up, and its bound.
 4. LZNT1 main path: the 32 MiB corpus of benchmarks/corpus.py plus 64 KiB of
    seeded random bytes (so that chunks are stored raw) is encoded by the
    repo's native C encoder, decoded by ``tpucomp_torch.decompress`` and
@@ -28,7 +28,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    random bytes and one of zeros, each encoded by the native C XH
    encoder, plus 32 seeded malformed units, in one batch of 546 rows.
    Every XH kernel against its plain version on the same CUDA tensors,
-   equal exactly, and both times.  The parse's plain version loops once
+   equal exactly, both times and the bound (the near walk's too, at this
+   shape).  The parse's plain version loops once
    per body byte, so it runs on a sub-batch of short rows (the shortest
    corpus streams and the malformed rows), and the kernel with it.  The
    parse's rounds per row (corpus rows and tier-3 rows apart), and its
@@ -582,14 +583,16 @@ def xh_phases(dev, units, native, kernels) -> dict:
         max_err = compare(name, got, ref(*fargs))
         ms = statistics.median(cuda_ms(lambda: fn(*fargs), reps=10))
         plain_ms = statistics.median(cuda_ms(lambda: ref(*fargs), reps=3))
+        moved = nbytes(*(a for a in fargs if isinstance(a, torch.Tensor)),
+                       *got)
         print(f"{name} (XH shape {list(fargs[0].shape)}): equal to plain; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
         if replaces is None:  # LZNT1's kernel: its entry has LZNT1's times
-            entry = next(k for k in kernels if k["name"] == name)
-            entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+            fold_err(kernels, name, max_err)
             continue
         kernels.append(kernel_entry(name, replaces, max_err, ms, plain_ms,
-                                    nbytes(*fargs[:2], *got)))
+                                    moved))
     del parsed, parsed_ref, filled, near_in, near, seg, probed, row, args
     del sub_args, rec_pos, rec_val, batch, fill_in, seg_in
 
@@ -1551,13 +1554,15 @@ def main() -> None:
         max_err = compare(name, got, want)
         ms = statistics.median(cuda_ms(lambda: fn(*args), reps=20))
         plain_ms = statistics.median(cuda_ms(lambda: ref(*args), reps=3))
-        print(f"{name}: equal to plain; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
         # the parse reads each payload as far as its plen
-        moved = (nbytes(*args[1:]) + int(plen.sum()) if name == "lznt1_parse"
-                 else nbytes(*args))
+        moved = nbytes(*got) + (
+            nbytes(*args[1:]) + int(plen.sum()) if name == "lznt1_parse"
+            else nbytes(*args))
+        print(f"{name}: equal to plain; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
         kernels.append(kernel_entry(name, replaces, max_err, ms, plain_ms,
-                                    moved + nbytes(*got)))
+                                    moved))
     fill_ms = statistics.median(cuda_ms(
         lambda: common.fill_records_delta(parsed[0], parsed[1], lz.CHUNK),
         reps=5))

@@ -24,6 +24,7 @@ from tpucomp_torch.kernels import commit, common, fill, gather, lznt1_parse
 from tpucomp_torch.kernels import match, resolve, runs, sort, xh_parse
 from tpucomp_torch.kernels import xp_parse
 from test_torch_commit import segment_walk, walk_rows
+from test_torch_resolve_near import CASES, case_inputs
 from test_torch_xp_walk import literals, design_rows, pack, walk_steps
 from test_torch_xp_walk import write_stream as xp_write_stream
 from test_torch_xh_segment import (KINDS, Row, boundary_states, code_lengths,
@@ -308,6 +309,50 @@ def test_resolve_kernel_matches_plain_on_wide_rows(dev):
         r.integers(1, 9000, shape)).astype(np.int32))
     litv = torch.from_numpy(r.integers(0, 512, shape).astype(np.int32))
     args = [t.to(dev) for t in (is_copy, disp, litv)]
+    _assert_equal([resolve.resolve_near(*args)],
+                  [resolve.resolve_near_ref(*args)])
+
+
+def _resolve_rows(N, U, dev):
+    """N rows of width U, row i from case i mod 9 of
+    ``test_torch_resolve_near.CASES``, on the card."""
+    per = -(-N // len(CASES))
+    cases = [case_inputs(name, per, U, seed=N) for name in CASES]
+    return [torch.from_numpy(np.stack(p, axis=1).reshape(-1, U)[:N]).to(dev)
+            for p in zip(*cases)]
+
+
+@pytest.mark.parametrize("U", [512, 4096, 65536])
+@pytest.mark.parametrize("name", list(CASES))
+def test_resolve_kernel_on_adversarial_segments(name, U, dev):
+    N = {512: 13, 4096: 3, 65536: 2}[U]
+    args = [torch.from_numpy(p).to(dev) for p in case_inputs(name, N, U)]
+    before = resolve.resolve_near.launches
+    got = resolve.resolve_near(*args)
+    assert resolve.resolve_near.launches == before + 1
+    _assert_equal([got], [resolve.resolve_near_ref(*args)])
+
+
+@pytest.mark.parametrize("N, U", [(1, 4096), (3, 4096), (1000, 4096),
+                                  (1, 512), (3, 512), (13, 512)])
+def test_resolve_kernel_on_partial_blocks(N, U, dev):
+    """A block takes 8 segments: a row of 4096 fills one, rows of 512
+    leave the last block partly empty unless N % 8 == 0."""
+    args = _resolve_rows(N, U, dev)
+    before = resolve.resolve_near.launches
+    got = resolve.resolve_near(*args)
+    assert resolve.resolve_near.launches == before + 1
+    _assert_equal([got], [resolve.resolve_near_ref(*args)])
+
+
+def test_resolve_kernel_on_unaligned_planes(dev):
+    """Planes that are not 16-byte aligned take the kernel's 4-byte path."""
+    args = []
+    for t in _resolve_rows(9, 4096, dev):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        args.append(buf[1:].view(t.shape))
+        args[-1].copy_(t)
+    assert all(t.data_ptr() % 16 for t in args)
     _assert_equal([resolve.resolve_near(*args)],
                   [resolve.resolve_near_ref(*args)])
 
