@@ -1,14 +1,7 @@
 """Time the near walk (``tpucomp_torch/kernels/csrc/resolve_near.cu``)
-against builds of it that change its resolve, on one CUDA card:
-
-- ``no early exit``: every segment takes all 9 rounds of pointer
-  doubling, not only as many as its longest chain needs
-  (``-DRN_DROP=1``);
-- ``chunk walk``: the segment's sixteen 32-position chunks in order,
-  sources in the same chunk resolved by pointer jumping over the warp's
-  lanes, instead of the doubling (``-DRN_CHUNK_WALK=1``);
-- with ``--baseline PATH``, another source of the same entry point (for
-  example an older ``resolve_near.cu``), built and timed beside them.
+on one CUDA card, and with ``--baseline PATH`` another source of the same
+entry point (for example an older ``resolve_near.cu`` or a different
+resolve) built and timed beside it.
 
 Inputs: LZNT1's [8208, 4096] planes as ``chip_smoke.py`` phase 3 builds
 them from its corpus (without its malformed rows), the same shape with a
@@ -44,13 +37,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 5
 TURNS = 3
-
-VARIANTS = {  # name: extra nvcc flags
-    "kernel": [],
-    "no early exit": ["-DRN_DROP=1"],
-    "chunk walk": ["-DRN_CHUNK_WALK=1"],
-}
-
 
 def lznt1_planes(smoke, native, dev):
     """Phase 3's near-walk inputs, the corpus's chunks only."""
@@ -114,14 +100,14 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     src = os.path.join(os.path.dirname(_build.__file__), "csrc",
                        "resolve_near.cu")
-    builds = {name: (flags, src) for name, flags in VARIANTS.items()}
+    builds = {"kernel": src}
     if opts.baseline:
-        builds[f"baseline ({opts.baseline})"] = ([], opts.baseline)
+        builds[f"baseline ({opts.baseline})"] = opts.baseline
     nvcc = _build.find_nvcc()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         paths = {name: pool.submit(
-            _build.shared_library, nvcc, _build.NVCC_FLAGS + flags, [path],
-            "resolve_near_variant") for name, (flags, path) in builds.items()}
+            _build.shared_library, nvcc, _build.NVCC_FLAGS, [path],
+            "resolve_near_variant") for name, path in builds.items()}
         libs = {}
         for name, f in paths.items():
             path, log = f.result()

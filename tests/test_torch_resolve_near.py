@@ -6,12 +6,7 @@ The kernel gives a warp a 512-byte segment and codes a near copy as a
 pointer, ``~source``.  :func:`doubling` resolves as the kernel does:
 rounds in which every pointer takes what its source holds, all reads
 before any write, while any position of the segment holds a pointer, and
-counts each segment's rounds.  :func:`chunk_walk` models the build that
-``RN_CHUNK_WALK`` selects (``scripts/resolve_near_variants.py``): the
-sixteen 32-position chunks in order, sources in earlier chunks read from
-the resolved window, sources in the same chunk resolved by pointer
-jumping over the lanes (one shuffle a round) until no lane of the warp
-holds a pointer, with each chunk's rounds.  The adversarial segments of
+counts each segment's rounds.  The adversarial segments of
 :data:`CASES` are also what the card tests in ``tests/test_torch_cuda.py``
 run through the kernel (they import :func:`case_inputs` by module name).
 Every value is an integer: the tolerance is exact equality.
@@ -29,7 +24,6 @@ import torch
 from tpucomp_torch.kernels import common, resolve
 
 SEG = resolve.SEG
-CHUNKS = SEG // 32
 FAR_TAG = common.FAR_TAG
 WIDTHS = {512: 8, 4096: 2, 65536: 1}  # U: rows (8 to 128 segments)
 
@@ -65,43 +59,17 @@ def doubling(is_copy, disp, litv):
     return win.reshape(N, U).astype(np.int32), rounds
 
 
-def chunk_walk(is_copy, disp, litv):
-    """The ``RN_CHUNK_WALK`` build: (out int32 [N, U], rounds int
-    [N * U / 512, 16], the shuffle rounds of each segment's chunks)."""
-    N, U = is_copy.shape
+def depth(is_copy, disp, litv):
+    """[S]: the most hops any position of each segment takes, through its
+    near copies, to a position that holds no pointer; one position of the
+    segment at a time."""
     code = codes(is_copy, disp, litv)
-    S = code.shape[0]
-    win = np.zeros((S, SEG), np.int64)
-    rounds = np.zeros((S, CHUNKS), int)
-    for c in range(CHUNKS):
-        x = code[:, 32 * c:32 * c + 32].copy()
-        earlier = (x < 0) & (~x < 32 * c)
-        x = np.where(earlier, np.take_along_axis(
-            win, np.where(earlier, ~x, 0), 1), x)
-        while True:
-            warp = (x < 0).any(axis=1)  # __any_sync
-            if not warp.any():
-                break
-            rounds[warp, c] += 1
-            y = np.take_along_axis(x, ~x & 31, 1)  # __shfl_sync
-            x = np.where(x < 0, y, x)
-        win[:, 32 * c:32 * c + 32] = x
-    return win.reshape(N, U).astype(np.int32), rounds
-
-
-def depth(is_copy, disp, litv, span):
-    """[S, 512 / span]: the most hops any position of each span of a
-    segment takes, through sources inside that span, to a position that
-    holds no such pointer; one position of the span at a time."""
-    code = codes(is_copy, disp, litv).reshape(-1, SEG // span, span)
-    start = span * np.arange(SEG // span)[:, None]
-    inside = (code < 0) & (~code >= start)
-    src = np.where(inside, ~code - start, 0)
     hops = np.zeros(code.shape, int)
-    for k in range(span):  # a source comes before its reader
-        hops[..., k] = np.where(inside[..., k], np.take_along_axis(
-            hops, src[..., k:k + 1], 2)[..., 0] + 1, 0)
-    return hops.max(axis=2)
+    for j in range(SEG):  # a source comes before its reader
+        hops[:, j] = np.where(code[:, j] < 0, np.take_along_axis(
+            hops, np.where(code[:, j:j + 1] < 0, ~code[:, j:j + 1], 0),
+            1)[:, 0] + 1, 0)
+    return hops.max(axis=1)
 
 
 def log2_rounds(hops):
@@ -244,29 +212,20 @@ def test_model_matches_plain_and_pallas(name, U):
     np.testing.assert_array_equal(
         got, _plain(U)[k * WIDTHS[U]:(k + 1) * WIDTHS[U]])
     np.testing.assert_array_equal(got, _pallas(*planes))
-    walked, chunk_rounds = chunk_walk(*planes)
-    np.testing.assert_array_equal(walked, got)
     # each round halves every chain: log2 of the longest chain's hops
-    np.testing.assert_array_equal(
-        rounds, log2_rounds(depth(*planes, SEG))[:, 0])
-    np.testing.assert_array_equal(
-        chunk_rounds, log2_rounds(depth(*planes, 32)))
-    assert rounds.max() <= 9 and chunk_rounds.max() <= 5
+    np.testing.assert_array_equal(rounds, log2_rounds(depth(*planes)))
+    assert rounds.max() <= 9
 
 
 def test_rounds_of_the_edge_cases():
-    """A run of displacement 1 takes 9 rounds (5 in every chunk of the
-    chunk walk); sources at position 0 one round (the chunk walk: one in
-    the first chunk, none after it); literals and far copies none."""
+    """A run of displacement 1 takes 9 rounds; sources at position 0 one
+    round; literals and far copies none."""
     U = 4096
     rounds = {n: doubling(*case_inputs(n, 1, U))[1] for n in CASES}
-    chunks = {n: chunk_walk(*case_inputs(n, 1, U))[1] for n in CASES}
-    assert (rounds["run_d1"] == 9).all() and (chunks["run_d1"] == 5).all()
+    assert (rounds["run_d1"] == 9).all()
     assert (rounds["d_eq_j"] == 1).all()
-    assert (chunks["d_eq_j"][:, 0] == 1).all()
-    assert (chunks["d_eq_j"][:, 1:] == 0).all()
     for n in ("all_literal", "all_far", "d0_or_past_start"):
-        assert (rounds[n] == 0).all() and (chunks[n] == 0).all()
+        assert (rounds[n] == 0).all()
 
 
 def test_kernel_constants():
@@ -280,10 +239,10 @@ def test_kernel_constants():
         r"constexpr int (\w+) = (\d+);", src)}
     assert const["SEG"] == SEG
     assert "constexpr int FAR_TAG = 1 << 24;" in src and FAR_TAG == 1 << 24
-    assert "constexpr int CHUNKS = SEG / 32;" in src
     assert "constexpr int THREADS = 32 * WARPS;" in src
-    stage = 2 * 4 * SEG + SEG  # disp, litv, is_copy
-    assert re.search(rf"one segment's inputs, {stage:,} bytes", src)
+    assert "static_assert(sizeof(Stage) == STAGE_BYTES" in src
+    stage = const["STAGE_BYTES"]
+    assert stage == 2 * 4 * SEG + SEG  # disp, litv, is_copy
     blocks = const["BLOCKS_PER_SM"]
     assert blocks * (const["WARPS"] * stage + 1024) <= 228 * 1024
     assert blocks * 32 * const["WARPS"] <= 2048

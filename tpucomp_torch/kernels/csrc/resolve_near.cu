@@ -46,42 +46,32 @@
 // which moves the same bytes, and about as long on the corpus planes as
 // on rows of literals alone, or of 511-hop chains.
 //
-// The alternative, a chunk walk (RN_CHUNK_WALK): the segment's sixteen
-// 32-position chunks in order, a source in an earlier chunk read from the
-// resolved window, sources in the same chunk resolved by pointer jumping
-// over the lanes with __shfl_sync, at most 5 rounds a chunk.  It measured
-// within the noise of the doubling at every shape, the deepest chains
-// included, both at the staging's time; the doubling is the shorter code.
+// Chosen over a chunk walk (the segment's sixteen 32-position chunks in
+// order, sources in the same chunk resolved by __shfl_sync pointer
+// jumping) by measurement: the two took the same time at every shape,
+// the deepest chains included, and the doubling is the shorter code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// For measurement only (scripts/resolve_near_variants.py), a build may
-// change the resolve: RN_DROP=1, every segment takes all 9 rounds, with no
-// early exit; RN_CHUNK_WALK=1, the chunk walk above instead of the
-// doubling.
-#ifndef RN_DROP
-#define RN_DROP 0
-#endif
-#ifndef RN_CHUNK_WALK
-#define RN_CHUNK_WALK 0
-#endif
-
 namespace {
 
 constexpr int SEG = 512;
-constexpr int CHUNKS = SEG / 32;
+constexpr int CHUNKS = SEG / 32;  // a lane's positions, j = 32 c + lane
 constexpr int FAR_TAG = 1 << 24;
 constexpr int WARPS = 8;  // segments a block
 constexpr int THREADS = 32 * WARPS;
 constexpr int BLOCKS_PER_SM = 6;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
-struct alignas(16) Stage {  // one segment's inputs, 4,608 bytes
+constexpr int STAGE_BYTES = 4608;  // one segment's inputs
+
+struct alignas(16) Stage {
   int32_t disp[SEG];  // then the resolved window
   int32_t litv[SEG];
   uint8_t is_copy[SEG];
 };
+static_assert(sizeof(Stage) == STAGE_BYTES, "Stage is one segment's inputs");
 
 __device__ __forceinline__ void copy16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
@@ -134,19 +124,6 @@ __device__ __forceinline__ void resolve_segment(Stage& s, int lane,
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) code[c] = code_of(s, 32 * c + lane, base);
   __syncwarp();  // every lane has read the disp plane: it becomes the window
-#if RN_CHUNK_WALK
-#pragma unroll
-  for (int c = 0; c < CHUNKS; ++c) {
-    int x = code[c];
-    if (x < 0 && ~x < 32 * c) x = win[~x];  // an earlier chunk: resolved
-    while (__any_sync(FULL, x < 0)) {
-      const int y = __shfl_sync(FULL, x, ~x & 31);
-      if (x < 0) x = y;  // the source's value, or its pointer: one jump
-    }
-    win[32 * c + lane] = x;
-    __syncwarp();
-  }
-#else
   // each round, every position that holds a pointer takes what its source
   // holds, all read before any is written
   bool pending = false;
@@ -155,11 +132,7 @@ __device__ __forceinline__ void resolve_segment(Stage& s, int lane,
     win[32 * c + lane] = code[c];
     pending |= code[c] < 0;
   }
-#if RN_DROP
-  for (int round = 0; round < 9; ++round) {
-#else
   while (__any_sync(FULL, pending)) {
-#endif
     __syncwarp();
     pending = false;
 #pragma unroll
@@ -171,7 +144,6 @@ __device__ __forceinline__ void resolve_segment(Stage& s, int lane,
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) win[32 * c + lane] = code[c];
   }
-#endif
   __syncwarp();
 }
 

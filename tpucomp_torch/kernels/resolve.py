@@ -8,7 +8,7 @@ and runs :func:`resolve_near_ref` on CPU tensors.
 
 Each row of U output positions (any multiple of 512: 4096 for LZNT1's
 chunks, up to 65536 for Xpress Huffman's blocks) is cut into 512-byte
-segments, each walked in order.  A literal resolves to its byte.  A copy
+segments, each resolved independently.  A literal resolves to its byte.  A copy
 whose source lies inside the segment takes the source's resolved value
 (so far tags propagate through in-segment copies); any other copy becomes
 ``FAR_TAG | max(segment_base + j - disp, 0)``, an absolute source that
