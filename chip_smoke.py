@@ -33,7 +33,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    per body byte, so it runs on a sub-batch of short rows (the shortest
    corpus streams and the malformed rows), and the kernel with it.  The
    parse's rounds per row (corpus rows and tier-3 rows apart), and its
-   time on the whole batch, the sub-batch and the random unit alone.
+   time on the whole batch, the sub-batch and the random unit alone.  How
+   many rows the full-row level swept and how many ran its round loop
+   (the units' rows and the malformed rows apart; no unit's row may).
 6. XH main path, with every launch count set to 0 first:
    ``decompress_batch("xpress_huff", ...)`` of the 514 units, equal to
    them (16 sampled units also to the native C decoder); the same units
@@ -71,7 +73,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    its time on the whole batch, the sub-batch, the random unit alone and
    514 units of seeded random bytes (decoding back); on the whole batch
    the decode tail's
-   kernels (fill, near walk, 4 KiB level, row level); then the encode
+   kernels (fill, near walk, 4 KiB level, row level, with the row
+   level's branches as in phase 5); then the encode
    kernels at [514, 65536]: the run matcher, the row sort of the hash key
    and of the un-sort (beside ``torch.sort`` + ``gather``) and the greedy
    walk (with its rounds, and its time on rows with no chain and on all
@@ -461,6 +464,23 @@ def xh_parse_rounds(ss, n_corpus) -> None:
         f"{float(r[m].mean()):.4f}" for label, m in parts if bool(m.any())))
 
 
+def far_row_branches(where, n_units) -> None:
+    """Print how many rows of far_row's last launch were swept and how
+    many ran the round loop, the units' rows (``n_units`` first) and the
+    malformed rows apart; fails if a unit's row ran the round loop (the
+    states of a valid stream point backward)."""
+    from tpucomp_torch.kernels import gather
+
+    looped = gather.far_row.looped.bool().cpu()
+    parts = [("units' rows", looped[:n_units]),
+             ("malformed rows", looped[n_units:])]
+    print(f"far_row branches ({where}): " + "; ".join(
+        f"{label} ({len(m)}): swept {int((~m).sum())}, round loop "
+        f"{int(m.sum())}" for label, m in parts))
+    require(not bool(looped[:n_units].any()),
+            f"a unit's row took far_row's round loop ({where})")
+
+
 def xh_units(units, rng) -> list:
     """The corpus's units of 64 KiB, one of random bytes from ``rng``
     (substep tier 3, the longest XH body) and one of zeros (tier 17)."""
@@ -562,7 +582,7 @@ def xh_phases(dev, units, native, kernels) -> dict:
     seg = gather.far_level(*seg_in)
     probed = gather.far_probe(seg)
     row = gather.far_row(probed)
-    torch.cuda.synchronize()
+    far_row_branches("XH shape, after the probes", len(units))
     tags = [int(((t & (1 << 24)) != 0).sum()) for t in (near, seg, probed)]
     print(f"xh far tags: {tags[0]} after the near walk, {tags[1]} after the "
           f"4 KiB level, {tags[2]} after the probes")
@@ -1091,6 +1111,7 @@ def xpress_phases(dev, units, native, kernels) -> dict:
     seg = entry("far_level (4 KiB level)", gather.far_level,
                 gather.far_level_ref, seg_in, reps=5)
     entry("far_row", gather.far_row, gather.far_row_ref, (seg,), reps=5)
+    far_row_branches("Xpress shape, after the 4 KiB level", len(units))
     del parsed, parsed_ref, filled, near_in, near, seg, sub_args
     del rec_pos, rec_val, fill_in, seg_in
 

@@ -24,6 +24,8 @@ from tpucomp_torch.kernels import commit, common, fill, gather, lznt1_parse
 from tpucomp_torch.kernels import match, resolve, runs, sort, xh_parse
 from tpucomp_torch.kernels import xp_parse
 from test_torch_commit import segment_walk, walk_rows
+from test_torch_far_row import CASES as FAR_CASES, WIDTHS as FAR_WIDTHS
+from test_torch_far_row import NARROW, case_rows, far_row_model, narrow_rows
 from test_torch_resolve_near import CASES, case_inputs
 from test_torch_xp_walk import literals, design_rows, pack, walk_steps
 from test_torch_xp_walk import write_stream as xp_write_stream
@@ -298,6 +300,94 @@ def test_far_kernels_match_plain(width, dev):
     _assert_equal([gather.far_probe(xs, 1)], [gather.far_probe_ref(xs, 1)])
     _assert_equal([gather.far_row(seg)], [gather.far_row_ref(seg)])
     _assert_equal([gather.far_row(xs)], [gather.far_row_ref(xs)])
+
+
+def _hold_far_row(xs):
+    """One launch of far_row on ``xs`` against far_row_ref, and against
+    the numpy model of tests/test_torch_far_row.py with the branch of
+    every row.  Returns the rows that ran the round loop (bool numpy)."""
+    before = gather.far_row.launches
+    got = gather.far_row(xs)
+    assert gather.far_row.launches == before + 1
+    _assert_equal([got], [gather.far_row_ref(xs)])
+    want, looped = far_row_model(xs.cpu().numpy())
+    assert torch.equal(got.cpu(), torch.from_numpy(want))
+    assert gather.far_row.looped.cpu().tolist() == looped.astype(int).tolist()
+    return looped
+
+
+@pytest.mark.parametrize("U", FAR_WIDTHS)
+@pytest.mark.parametrize("name", list(FAR_CASES))
+def test_far_row_kernel_on_cases(name, U, dev):
+    x, looped = case_rows(name, U)
+    assert (_hold_far_row(torch.from_numpy(x).to(dev)) == looped).all()
+
+
+@pytest.mark.parametrize("U", NARROW)
+def test_far_row_kernel_on_narrow_rows(U, dev):
+    x, looped = narrow_rows(U)
+    assert (_hold_far_row(torch.from_numpy(x).to(dev)) == looped).all()
+
+
+def test_far_row_kernel_on_a_mixed_batch(dev):
+    """Every case's rows at 65536 in one launch, swept and round-loop rows
+    interleaved."""
+    rows = [case_rows(name, 65536) for name in FAR_CASES]
+    perm = np.random.default_rng(40).permutation(sum(len(r[1]) for r in rows))
+    x = np.concatenate([r[0] for r in rows])[perm]
+    looped = np.concatenate([r[1] for r in rows])[perm]
+    assert looped.any() and not looped.all()
+    assert (_hold_far_row(torch.from_numpy(x).to(dev)) == looped).all()
+
+
+def test_far_row_kernel_past_one_wave(dev):
+    """1000 rows of 8192, more than the 792 blocks an H100 holds at once,
+    drawn from every case."""
+    rows = [case_rows(name, 8192) for name in FAR_CASES]
+    x = np.concatenate([r[0] for r in rows])
+    looped = np.concatenate([r[1] for r in rows])
+    pick = np.random.default_rng(41).integers(0, len(x), 1000)
+    assert (_hold_far_row(torch.from_numpy(x[pick]).to(dev))
+            == looped[pick]).all()
+
+
+def test_far_row_kernel_on_unaligned_rows(dev):
+    """A contiguous view 4 bytes into its storage at U = 65536: the
+    kernel's build with 4-byte copies and stores (U % 4 != 0 takes it
+    too: the 4610 cases)."""
+    x = np.concatenate([case_rows(n, 65536)[0]
+                        for n in ("run_d1", "cycles", "dead", "later_chunk")])
+    flat = torch.zeros(x.size + 1, dtype=torch.int32, device=dev)
+    xs = flat[1:].view(x.shape)
+    xs.copy_(torch.from_numpy(x))
+    assert xs.is_contiguous() and xs.data_ptr() % 16
+    _hold_far_row(xs)
+
+
+def test_far_row_kernel_on_decoded_states(dev):
+    """XH states after the 4 KiB level and the probes (its units and
+    malformed rows at 16 KiB, and the archive encoding), plain Xpress
+    states after the 4 KiB level (units and malformed rows at 64 KiB): the
+    valid units' rows are all swept."""
+    native = Native()
+    batch, units = _xh_batch(dev, native)
+    rec_pos, rec_val, _, _ = xh_parse.xh_parse(*xh.parse_inputs(*batch), XU)
+    filled = fill.fill_records_delta2(rec_pos, rec_val, XU, XU)
+    near = resolve.resolve_near(*xh.near_inputs(filled[0], filled[1]))
+    seg = gather.far_level(near, common.SEG_LEVEL, common.SEG_LEVEL_CAP,
+                           False)
+    for states in (seg, gather.far_probe(seg)):
+        assert not _hold_far_row(states)[:len(units) + 1].any()
+    rows, units = _xp_rows(native)
+    batch = xp.pack_units([s for s, _ in rows], [n for _, n in rows], 65536,
+                          dev)
+    rec_pos, rec_val, _, _ = xp_parse.xp_parse(*batch, 65536)
+    filled = fill.fill_records_delta2(rec_pos, rec_val, 65536)
+    near = resolve.resolve_near(*xh.near_inputs(filled[0], filled[1]))
+    seg = gather.far_level(near, common.SEG_LEVEL, common.SEG_LEVEL_CAP,
+                           False)
+    assert ((seg & common.FAR_TAG) != 0)[:len(units)].any()
+    assert not _hold_far_row(seg)[:len(units)].any()
 
 
 def test_resolve_kernel_matches_plain_on_wide_rows(dev):

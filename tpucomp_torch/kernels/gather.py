@@ -15,7 +15,10 @@ the Pallas gathers they drive (``tpucomp/kernels/common.py``,
   ``csrc/far_level.cu``, one block per segment.
 - :func:`far_row`: the full-row level ``_far_level_segmented(out, U, U)``
   of rows wider than 4096 bytes, the fetch ``gather18_pairs``.  Launches
-  ``csrc/far_row.cu``, one block per row.
+  ``csrc/far_row.cu``, one block per row: a sweep over the row's chunks
+  of 1024 positions from left to right, each tag taking its source's
+  final value, for rows whose live tags point no further than their own
+  chunk's end (every real row); the level's rounds for the others.
 - :func:`far_probe`: the value-chase rounds of ``_far_rounds(fast=True)``
   (``_far_probe_round``), the fetch ``probe_gather_pairs``.  Launches
   ``csrc/far_probe.cu``, one block per row.
@@ -177,18 +180,31 @@ def far_row_ref(out: torch.Tensor) -> torch.Tensor:
 def far_row(out: torch.Tensor) -> torch.Tensor:
     """The last doubling level, over whole rows of any width up to 65536:
     at most ``level_cap(U)`` rounds (19 at U = 65536), then the tags left
-    are zeroed.  Takes and returns int32 [N, U]."""
+    are zeroed.  Takes and returns int32 [N, U].
+
+    The rounds follow every chain to its end (a byte; 0 for a dead tag or
+    a cycle), so the kernel sweeps a row's chunks of 1024 positions in
+    order instead: a tag whose source lies in an earlier chunk takes the
+    source's final value, tags inside the chunk resolve by pointer
+    doubling.  A row with a live tag pointing past its own chunk's end,
+    or a tag with state bits above 17, runs the rounds instead.
+    ``far_row.looped`` (int32 [N] on the card) is 1 for the rows of the
+    last launch that ran the rounds.
+    """
     if not _build.use_kernel(out):
         return far_row_ref(out)
     N, U = out.shape
     _check(out, U)
     src = out.contiguous()
     res = torch.empty_like(src)
+    looped = torch.empty(N, dtype=torch.int32, device=src.device)
     if N:
-        # the round state ping-pongs between res and this scratch
+        # the rounds' state ping-pongs between res and this scratch
         scratch = torch.empty_like(src)
-        _build.launch("far_row", [src, res, scratch], [N, U, level_cap(U)])
+        _build.launch("far_row", [src, res, scratch, looped],
+                      [N, U, level_cap(U)])
         far_row.launches += 1
+    far_row.looped = looped
     return res
 
 
