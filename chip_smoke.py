@@ -13,7 +13,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 3. LZNT1 kernel vs plain: each kernel against its plain PyTorch version on the
    same CUDA tensors at the main path's shape (one row per chunk of the
    corpus, 256 rows replaced by seeded malformed ones), equal exactly;
-   then each one's time, CUDA-event timed after a warm-up, and its bound.
+   then each one's time, CUDA-event timed after a warm-up, and its bound;
+   the parse's windows per row, and its time in runs of ``BURST`` calls
+   back to back beside ``fill_`` of its two record planes (the same
+   bytes written).
 4. LZNT1 main path: the 32 MiB corpus of benchmarks/corpus.py plus 64 KiB of
    seeded random bytes (so that chunks are stored raw) is encoded by the
    repo's native C encoder, decoded by ``tpucomp_torch.decompress`` and
@@ -142,6 +145,7 @@ N_XP_MALFORMED = 32
 XP_SUB_SHORTEST = 32
 XHE_SUB_CORPUS = 29  # corpus units in the XH encode host sub-batch
 ONESHOT_BYTES = 200 << 10
+BURST = 10  # calls a run, timed back to back
 
 
 # H100 SXM device memory rate (NVIDIA's data sheet): every kernel here is
@@ -186,6 +190,26 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> list[float]:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return times
+
+
+def burst_ms(fn, reps: int) -> list[float]:
+    """Per-call device times in ms of ``BURST`` calls back to back, one
+    CUDA-event pair around each run of them: the card's own time, the
+    host's launch work hidden behind the calls before it."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(BURST):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / BURST)
     return times
 
 
@@ -1543,6 +1567,7 @@ def main() -> None:
     bad = malformed_rows(payload, plen, is_comp, rng)
     parse_in = (payload, plen, is_comp)
     parsed = lznt1_parse.lznt1_parse(*parse_in)
+    windows = lznt1_parse.lznt1_parse.windows.double()
     parsed_ref = lznt1_parse.lznt1_parse_ref(*parse_in)
     vpack = common.fill_records_delta(parsed[0], parsed[1], lz.CHUNK)
     is_copy = (vpack & lznt1_parse.COPY_BIT) != 0
@@ -1582,6 +1607,21 @@ def main() -> None:
         print(f"{name}: equal to plain; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound "
               f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        if name == "lznt1_parse":
+            walked = windows[:, 0] > 0
+            planes = [torch.empty_like(got[0]) for _ in range(2)]
+            b2b = statistics.median(burst_ms(lambda: fn(*args), reps=5))
+            fill_b2b = statistics.median(burst_ms(lambda: (
+                planes[0].fill_(lznt1_parse.SENT),
+                planes[1].fill_(lznt1_parse.EMPTY_VAL)), reps=5))
+            print(f"lznt1_parse: windows a walked row mean "
+                  f"{float(windows[walked, 0].mean()):.4f} (max "
+                  f"{int(windows[:, 0].max())}), redone mean "
+                  f"{float(windows[walked, 1].mean()):.4f} (max "
+                  f"{int(windows[:, 1].max())}); back to back "
+                  f"({BURST} calls a run) {b2b:.4f} ms, fill_ of the two "
+                  f"record planes (the same bytes written) {fill_b2b:.4f} ms")
+            del planes
         kernels.append(kernel_entry(name, replaces, max_err, ms, plain_ms,
                                     moved))
     fill_ms = statistics.median(cuda_ms(

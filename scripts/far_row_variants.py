@@ -17,11 +17,11 @@ the script prints how many rows took the round loop.  Then each is timed
 with CUDA events, all builds in turn, three times over, and the median of
 those turns' medians printed beside the bound: once a call (as
 ``chip_smoke.py`` times it: the host's launch work shows while the card
-waits for it) and in runs of ``BURST`` calls back to back (the card's own
-time, the host's work hidden behind the calls before it), (the states read once, the
-output written once, at 3.35 TB/s) and beside ``x.clone()``, one PyTorch
-call that moves the same bytes (a yardstick of the card's rate for this
-traffic, not the same function).
+waits for it) and in runs of ``chip_smoke.BURST`` calls back to back (the
+card's own time, the host's work hidden behind the calls before it),
+(the states read once, the output written once, at 3.35 TB/s) and beside
+``x.clone()``, one PyTorch call that moves the same bytes (a yardstick of
+the card's rate for this traffic, not the same function).
 
 Run from the repo's root on a machine with a card:
 ``python3 scripts/far_row_variants.py [--baseline PATH]``.  It exits
@@ -43,26 +43,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 5
 TURNS = 3
-BURST = 10
-
-
-def burst_ms(fn, reps: int) -> list[float]:
-    """Per-call device time in ms of ``BURST`` calls back to back, one
-    CUDA-event pair around each run of them."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(BURST):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / BURST)
-    return times
 
 
 def corpus_units(smoke):
@@ -199,13 +179,13 @@ def main() -> None:
         runs = {name: lambda name=name: level(name, x) for name in builds}
         runs["clone (same bytes)"] = x.clone
         turns = {(name, how): [] for name in runs
-                 for how in ("a call", f"in runs of {BURST}")}
+                 for how in ("a call", f"in runs of {smoke.BURST}")}
         for _ in range(TURNS):
             for name, fn in runs.items():
                 turns[name, "a call"].append(statistics.median(
                     smoke.cuda_ms(fn, reps=REPS)))
-                turns[name, f"in runs of {BURST}"].append(statistics.median(
-                    burst_ms(fn, reps=REPS)))
+                turns[name, f"in runs of {smoke.BURST}"].append(
+                    statistics.median(smoke.burst_ms(fn, reps=REPS)))
         for (name, how), ms in turns.items():
             print(f"  {name}, {how}: {statistics.median(ms):.4f} ms (turns "
                   f"{', '.join(f'{t:.4f}' for t in ms)})")

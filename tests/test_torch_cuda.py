@@ -26,6 +26,9 @@ from tpucomp_torch.kernels import xp_parse
 from test_torch_commit import segment_walk, walk_rows
 from test_torch_far_row import CASES as FAR_CASES, WIDTHS as FAR_WIDTHS
 from test_torch_far_row import NARROW, case_rows, far_row_model, narrow_rows
+from test_torch_lznt1_parse import CASES as PARSE_CASES
+from test_torch_lznt1_parse import WIDTHS as PARSE_WIDTHS
+from test_torch_lznt1_parse import case_rows as parse_rows, walk
 from test_torch_resolve_near import CASES, case_inputs
 from test_torch_xp_walk import literals, design_rows, pack, walk_steps
 from test_torch_xp_walk import write_stream as xp_write_stream
@@ -120,6 +123,58 @@ def test_empty_batch_launches_nothing(dev):
     before = lznt1_parse.lznt1_parse.launches
     out, out_len, err = lz.decode_batch(*batch)
     assert out.shape == (0, U) and lznt1_parse.lznt1_parse.launches == before
+
+
+def _hold_parse(batch):
+    """One launch of lznt1_parse on ``batch`` against lznt1_parse_ref;
+    returns the rows' windows and redone windows."""
+    before = lznt1_parse.lznt1_parse.launches
+    got = lznt1_parse.lznt1_parse(*batch)
+    assert lznt1_parse.lznt1_parse.launches == before + 1
+    _assert_equal(got, lznt1_parse.lznt1_parse_ref(*batch))
+    return lznt1_parse.lznt1_parse.windows.cpu().numpy()
+
+
+@pytest.mark.parametrize("P", PARSE_WIDTHS)
+@pytest.mark.parametrize("name", list(PARSE_CASES))
+def test_parse_kernel_on_cases(name, P, dev):
+    """The edge rows of tests/test_torch_lznt1_parse.py: equal to the
+    plain parse, with the windows of the numpy model."""
+    rows = parse_rows(name, P)
+    windows = _hold_parse([torch.from_numpy(x).to(dev) for x in rows])
+    np.testing.assert_array_equal(windows, walk(*rows)[4])
+
+
+def test_parse_kernel_past_one_wave(dev):
+    """20,000 chunks (a wave holds 5,280): the native and edge rows
+    over and over, random bytes among them."""
+    parts = [parse_rows(name, lz.PAYLOAD_PAD) for name in PARSE_CASES]
+    rows = [np.concatenate(x) for x in zip(*parts)]
+    pick = np.random.default_rng(4).integers(0, len(rows[1]), 20000)
+    payload, plen, is_comp = (x[pick] for x in rows)
+    noise = np.random.default_rng(5).random(20000) < 0.1
+    payload[noise] = np.random.default_rng(6).integers(
+        0, 256, (int(noise.sum()), lz.PAYLOAD_PAD), dtype=np.uint8)
+    windows = _hold_parse([torch.from_numpy(x).to(dev)
+                           for x in (payload, plen, is_comp)])
+    assert (windows[:, 1] <= 8).all()
+
+
+def test_parse_kernel_on_unaligned_rows(dev):
+    """Payload rows that start 3 bytes past an 8-byte boundary (a view
+    at a storage offset), at an odd width too."""
+    for P in (lz.PAYLOAD_PAD, 4613):
+        parts = [parse_rows(name, P) for name in PARSE_CASES]
+        payload, plen, is_comp = (np.concatenate(x) for x in zip(*parts))
+        N = len(plen)
+        flat = torch.zeros(N * P + 3, dtype=torch.uint8, device=dev)
+        flat[3:] = torch.from_numpy(payload.reshape(-1)).to(dev)
+        rows = flat[3:].view(N, P)
+        assert rows.is_contiguous() and rows.data_ptr() % 8 == 3
+        windows = _hold_parse([rows, torch.from_numpy(plen).to(dev),
+                               torch.from_numpy(is_comp).to(dev)])
+        np.testing.assert_array_equal(windows, walk(payload, plen,
+                                                    is_comp)[4])
 
 
 XU = 16384  # Xpress Huffman rows: every far level runs

@@ -10,6 +10,19 @@ output position and ``rec_val[n, s]`` = the literal byte or
 ``COPY_BIT | disp``.  Empty slots hold ``SENT`` and ``EMPTY_VAL``, the
 value tpucomp's unpacking gives an empty slot.  Record positions strictly
 increase along a row.
+
+The kernel gives a warp a chunk and walks its tokens 32 at a time, one a
+lane: byte offsets follow from the flag bytes alone, and a token's output
+position is a warp scan of the lengths before it, exact while the window
+stays in the position band (p <= 16, 17..32, ..., 2049..4096) that sets a
+copy's length/displacement split; the window after a band edge starts
+again at the first token past it (at most 8 such redone windows a
+chunk).  It writes each window's byte span of records, then the row's
+tail of empty slots with 16-byte stores.  The walk's integer
+instructions, more than the two record planes it writes, set its time on
+an H100 (``csrc/lznt1_parse.cu``).  It keeps each row's count of windows
+and of redone windows of its last launch as ``lznt1_parse.windows``
+(int32 [N, 2] on the card).
 """
 
 from __future__ import annotations
@@ -122,12 +135,15 @@ def lznt1_parse(payload: torch.Tensor, plen: torch.Tensor,
     rec_val = torch.empty_like(rec_pos)
     p_final = torch.empty_like(plen)
     err = torch.empty_like(plen)
+    windows = torch.empty((N, 2), dtype=torch.int32, device=payload.device)
     if N:
         _build.launch("lznt1_parse",
-                      [payload, plen, is_comp, rec_pos, rec_val, p_final, err],
-                      [N, P])
+                      [payload, plen, is_comp, rec_pos, rec_val, p_final, err,
+                       windows], [N, P])
         lznt1_parse.launches += 1
+    lznt1_parse.windows = windows
     return rec_pos, rec_val, p_final, err
 
 
 lznt1_parse.launches = 0
+lznt1_parse.windows = None
