@@ -16,15 +16,18 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    then each one's time, CUDA-event timed after a warm-up, and its bound;
    the parse's windows per row, and its time in runs of ``BURST`` calls
    back to back beside ``fill_`` of its two record planes (the same
-   bytes written).
+   bytes written).  The record fill in its value-only form (LZNT1's [N,
+   4616] records to [N, 4096]) likewise, in runs of ``BURST`` beside
+   ``clone()`` of the record planes plus ``fill_`` of the output plane
+   (the records moved twice, the plane once).
 4. LZNT1 main path: the 32 MiB corpus of benchmarks/corpus.py plus 64 KiB of
    seeded random bytes (so that chunks are stored raw) is encoded by the
    repo's native C encoder, decoded by ``tpucomp_torch.decompress`` and
    compared with the input, 64 sampled chunks also against the native C
    decoder; 512 units of 64 KiB go through ``decompress_batch``; a corrupt
    stream must raise ``DataError``.  Every kernel must have launched on
-   this path.  Then decode GB/s, the median of 5 runs after a warm-up;
-   ``decompress`` step by step; and one ``decompress`` under
+   this path, the fill included.  Then decode GB/s, the median of 5 runs
+   after a warm-up; ``decompress`` step by step; and one ``decompress`` under
    ``torch.profiler``: the device's busy time and idle share, and the
    device ops that take the most time.
 5. XH kernel vs plain: the corpus's 512 units of 64 KiB, one of seeded
@@ -32,7 +35,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    encoder, plus 32 seeded malformed units, in one batch of 546 rows.
    Every XH kernel against its plain version on the same CUDA tensors,
    equal exactly, both times and the bound (the near walk's too, at this
-   shape).  The parse's plain version loops once
+   shape); the fill also in runs of ``BURST`` beside that yardstick,
+   and on the zeros unit's row alone and on 546 rows of
+   literals.  The parse's plain version loops once
    per body byte, so it runs on a sub-batch of short rows (the shortest
    corpus streams and the malformed rows), and the kernel with it.  The
    parse's rounds per row (corpus rows and tier-3 rows apart), and its
@@ -77,7 +82,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    514 units of seeded random bytes (decoding back); on the whole batch
    the decode tail's
    kernels (fill, near walk, 4 KiB level, row level, with the row
-   level's branches as in phase 5); then the encode
+   level's branches as in phase 5; the fill as in phase 5, and on the
+   zeros unit's row alone); then the encode
    kernels at [514, 65536]: the run matcher, the row sort of the hash key
    and of the un-sort (beside ``torch.sort`` + ``gather``) and the greedy
    walk (with its rounds, and its time on rows with no chain and on all
@@ -113,7 +119,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    (resident) and ``compress_batch``, the median of 5; the stages; peak
    memory; one ``compress_batch`` under the profiler.
 
-The last two lines are JSON: the kernels, and ``{"ok": true, "device":
+The last two lines are JSON: the kernels (the fill's entry also lists
+its three shapes under ``shapes``), and ``{"ok": true, "device":
 ...}``.  The script exits nonzero, printing neither, when CUDA is absent.
 It never imports JAX or the tpucomp package: it builds the native C codec
 from its source with the host C compiler.
@@ -403,12 +410,13 @@ def compare(name, got, want) -> int:
 
 
 def hold_to_plain(where, label, fn, ref, args, reps=10, plain_reps=3,
-                  extra=""):
+                  extra="", need=None):
     """Hold kernel wrapper ``fn`` to its plain version ``ref`` on ``args``
     (equal exactly), then time both with CUDA events (medians) and print
     them beside the bound: the tensors of ``args`` read once, the outputs
-    written once.  Returns (output, max abs err, kernel ms, plain ms,
-    bytes moved)."""
+    written once, or ``need(outputs)`` bytes where the function needs
+    only part of its inputs.  Returns (output, max abs err, kernel ms,
+    plain ms, bytes moved)."""
     import torch
 
     got = fn(*args)
@@ -418,7 +426,7 @@ def hold_to_plain(where, label, fn, ref, args, reps=10, plain_reps=3,
     ins = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
            if isinstance(t, torch.Tensor)]
     outs = (got,) if isinstance(got, torch.Tensor) else tuple(got)
-    moved = nbytes(*ins, *outs)
+    moved = nbytes(*ins, *outs) if need is None else need(outs)
     print(f"{label} ({where} shapes {[list(t.shape) for t in ins]}): equal to "
           f"plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms{extra}")
@@ -430,6 +438,66 @@ def fold_err(kernels, label, max_err) -> None:
     ``label`` names (its first word)."""
     k = next(k for k in kernels if k["name"] == label.split(" ")[0])
     k["max_abs_err"] = max(k["max_abs_err"], max_err)
+
+
+def fill_bytes(rec_pos, U, outs) -> int:
+    """The bytes the record fill must move on this run's data: rec_pos
+    read whole (each slot says whether its record is real), rec_val only
+    in the 32-byte sectors of a row that hold a real record, and the
+    output planes ``outs`` written once."""
+    import torch
+
+    N, R = rec_pos.shape
+    real = (rec_pos >= 0) & (rec_pos < U)
+    if R % 8:
+        real = torch.cat([real, real.new_zeros(N, -R % 8)], dim=1)
+    sectors = int(real.reshape(N, -1, 8).any(dim=2).sum())
+    return nbytes(rec_pos, *outs) + 32 * sectors
+
+
+def fill_case(kernels, where, fn, ref, args, plain_reps=3):
+    """:func:`hold_to_plain` of a form of the record fill
+    (``fill_records_delta2``, or ``fill_records_delta``, the value plane
+    alone) on ``args`` (rec_pos, rec_val, U[, keep]), its bound
+    :func:`fill_bytes`; then its time in runs of ``BURST`` calls back to
+    back, beside a yardstick that moves the records twice and the planes
+    once in as many calls (``clone()`` of the two record planes and
+    ``fill_`` of the output planes).  Unless ``kernels`` is None, add the
+    shape to the ``fill_records`` entry's ``shapes`` (the entry is made,
+    with its times, at the first shape).  Returns the kernel's output."""
+    import torch
+
+    recs = args[:2]
+    got, max_err, ms, plain_ms, moved = hold_to_plain(
+        where, "fill_records", fn, ref, args, reps=20, plain_reps=plain_reps,
+        need=lambda outs: fill_bytes(recs[0], args[2], outs))
+    outs = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+    b2b = statistics.median(burst_ms(lambda: fn(*args), reps=5))
+    planes = [torch.empty_like(o) for o in outs]
+    yard = statistics.median(burst_ms(lambda: (
+        [r.clone() for r in recs], [p.fill_(0) for p in planes]), reps=5))
+    N, R = recs[0].shape
+    form = "two planes" if len(outs) > 1 else "value plane"
+    print(f"fill_records ({where}, records [{N}, {R}] -> {form} "
+          f"{list(outs[0].shape)}): {b2b:.4f} ms back to back ({BURST} "
+          f"calls a run) beside {yard:.4f} ms for clone() of the record "
+          f"planes + fill_ of the output planes")
+    if kernels is not None:
+        entry = next((k for k in kernels if k["name"] == "fill_records"),
+                     None)
+        if entry is None:
+            entry = kernel_entry("fill_records",
+                                 "tpucomp/kernels/fill_pallas.py:180",
+                                 max_err, ms, plain_ms, moved)
+            entry["shapes"] = []
+            kernels.append(entry)
+        entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+        entry["shapes"].append({
+            "where": where, "records": [N, R], "out": list(outs[0].shape),
+            "planes": min(len(outs), 2), "ms": ms, "back_to_back_ms": b2b,
+            "yardstick_ms": yard, "plain_ms": plain_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3})
+    return got
 
 
 def sort_case(where, label, planes, reps=10, plain_reps=3):
@@ -594,7 +662,21 @@ def xh_phases(dev, units, native, kernels) -> dict:
 
     rec_pos, rec_val, p_final, errk = parsed
     fill_in = (rec_pos, rec_val, UNIT, UNIT)
-    filled = fill.fill_records_delta2(*fill_in)
+    filled = fill_case(kernels, "XH", fill.fill_records_delta2,
+                       fill.fill_records_delta2_ref, fill_in)
+    # the zeros unit's row alone (two records: a literal, then one match
+    # over the whole row), and every row all literals
+    z = len(units) - 1
+    fill_case(None, "XH, the zeros unit's row alone",
+              fill.fill_records_delta2, fill.fill_records_delta2_ref,
+              (rec_pos[z:z + 1], rec_val[z:z + 1], UNIT, UNIT))
+    gen = torch.Generator(dev).manual_seed(SEED)
+    lit = (torch.arange(UNIT, dtype=torch.int32, device=dev).expand(
+        N, UNIT).contiguous(), torch.randint(
+            0, 256, (N, UNIT), dtype=torch.int32, device=dev, generator=gen))
+    fill_case(None, "all literals", fill.fill_records_delta2,
+              fill.fill_records_delta2_ref, (*lit, UNIT, UNIT))
+    del lit
     err = (errk != 0) | (filled[2] != 0) | (p_final < batch[2])
     require(not bool(err[:len(units)].any()),
             "a well-formed XH unit parsed with err set")
@@ -611,9 +693,6 @@ def xh_phases(dev, units, native, kernels) -> dict:
     print(f"xh far tags: {tags[0]} after the near walk, {tags[1]} after the "
           f"4 KiB level, {tags[2]} after the probes")
     cases = [
-        ("fill_records", fill.fill_records_delta2,
-         fill.fill_records_delta2_ref, fill_in, filled,
-         "tpucomp/kernels/fill_pallas.py:180"),
         ("resolve_near", resolve.resolve_near, resolve.resolve_near_ref,
          near_in, (near,), None),
         ("far_level", gather.far_level, gather.far_level_ref, seg_in, (seg,),
@@ -1126,8 +1205,12 @@ def xpress_phases(dev, units, native, kernels) -> dict:
     print(f"xpress: {int(err.sum())} rows with err ({N_XP_MALFORMED} "
           "malformed rows injected)")
     fill_in = (rec_pos, rec_val, UNIT)
-    filled = entry("fill_records", fill.fill_records_delta2,
-                   fill.fill_records_delta2_ref, fill_in, reps=5)
+    filled = fill_case(kernels, "Xpress", fill.fill_records_delta2,
+                       fill.fill_records_delta2_ref, fill_in)
+    z = len(units) - 1
+    fill_case(None, "Xpress, the zeros unit's row alone",
+              fill.fill_records_delta2, fill.fill_records_delta2_ref,
+              (rec_pos[z:z + 1], rec_val[z:z + 1], UNIT))
     near_in = near_inputs(filled[0], filled[1])
     near = entry("resolve_near", resolve.resolve_near,
                  resolve.resolve_near_ref, near_in, reps=5)
@@ -1526,7 +1609,8 @@ def main() -> None:
     import tpucomp_torch
     from benchmarks.corpus import silesia_like
     from tpucomp_torch.codecs import lznt1 as lz
-    from tpucomp_torch.kernels import _build, common, gather, lznt1_parse, resolve
+    from tpucomp_torch.kernels import (_build, common, fill, gather,
+                                       lznt1_parse, resolve)
 
     # ---- 1. device ----------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -1569,7 +1653,10 @@ def main() -> None:
     parsed = lznt1_parse.lznt1_parse(*parse_in)
     windows = lznt1_parse.lznt1_parse.windows.double()
     parsed_ref = lznt1_parse.lznt1_parse_ref(*parse_in)
-    vpack = common.fill_records_delta(parsed[0], parsed[1], lz.CHUNK)
+    kernels = []
+    vpack = fill_case(kernels, "LZNT1", fill.fill_records_delta,
+                      fill.fill_records_delta_ref,
+                      (parsed[0], parsed[1], lz.CHUNK), plain_reps=5)
     is_copy = (vpack & lznt1_parse.COPY_BIT) != 0
     near_in = (is_copy, vpack & (lznt1_parse.COPY_BIT - 1),
                torch.where(is_copy, 0, vpack & 0xFF))
@@ -1586,7 +1673,6 @@ def main() -> None:
           f"({N_MALFORMED} malformed rows injected), "
           f"{int(((near & common.FAR_TAG) != 0).sum())} far tags")
 
-    kernels = []
     cases = [
         ("lznt1_parse", lznt1_parse.lznt1_parse, lznt1_parse.lznt1_parse_ref,
          parse_in, parsed, parsed_ref, "tpucomp/kernels/lznt1_pallas.py:153"),
@@ -1624,18 +1710,17 @@ def main() -> None:
             del planes
         kernels.append(kernel_entry(name, replaces, max_err, ms, plain_ms,
                                     moved))
-    fill_ms = statistics.median(cuda_ms(
-        lambda: common.fill_records_delta(parsed[0], parsed[1], lz.CHUNK),
-        reps=5))
-    print(f"fill_records_delta (plain torch, no kernel): {fill_ms:.4f} ms")
     del parsed, parsed_ref, vpack, is_copy, near_in, near, near_ref, far, far_ref
 
     # ---- 4. main path ----------------------------------------------------
     units = [data[i:i + UNIT] for i in range(0, CORPUS_BYTES, UNIT)]
     unit_streams = [native.lznt1_compress(u) for u in units]
     corrupt = (0xB000 | 2).to_bytes(2, "little") + bytes([1, 0, 0])
-    for fn in (lznt1_parse.lznt1_parse, resolve.resolve_near,
-               gather.far_level):
+    path = {"lznt1_parse": lznt1_parse.lznt1_parse,
+            "fill_records": fill.fill_records_delta,
+            "resolve_near": resolve.resolve_near,
+            "far_level": gather.far_level}
+    for fn in path.values():
         fn.launches = 0
     out = tpucomp_torch.decompress("lznt1", stream, device="cuda")
     out_units = tpucomp_torch.decompress_batch("lznt1", unit_streams,
@@ -1645,8 +1730,7 @@ def main() -> None:
         raised = False
     except tpucomp_torch.DataError:
         raised = True
-    launches = {fn.__name__: fn.launches for fn in (
-        lznt1_parse.lznt1_parse, resolve.resolve_near, gather.far_level)}
+    launches = {name: fn.launches for name, fn in path.items()}
     print(f"main path launches: {launches}")
     require(out == data, "decompress output differs from the input")
     spans = chunk_spans(stream)

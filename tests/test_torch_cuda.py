@@ -26,6 +26,8 @@ from tpucomp_torch.kernels import xp_parse
 from test_torch_commit import segment_walk, walk_rows
 from test_torch_far_row import CASES as FAR_CASES, WIDTHS as FAR_WIDTHS
 from test_torch_far_row import NARROW, case_rows, far_row_model, narrow_rows
+from test_torch_fill import CASES as FILL_CASES, KEEP_DISTINCT
+from test_torch_fill import case_rows as fill_rows, edges_of
 from test_torch_lznt1_parse import CASES as PARSE_CASES
 from test_torch_lznt1_parse import WIDTHS as PARSE_WIDTHS
 from test_torch_lznt1_parse import case_rows as parse_rows, walk
@@ -314,7 +316,7 @@ def test_xh_parse_kernel_on_a_random_unit(dev):
 
 def test_fill_kernel_matches_plain(dev):
     """Monotone records with adjacent repeats and SENT or -1 gaps, R below
-    and above U, and a keep that binds."""
+    and above U, and a keep that binds; then the edge rows at both R."""
     r = np.random.default_rng(9)
     W = 4096
     for R in (3000, 9000):
@@ -326,6 +328,75 @@ def test_fill_kernel_matches_plain(dev):
         for keep in (None, 500):
             _assert_equal(fill.fill_records_delta2(*args, W, keep),
                           fill.fill_records_delta2_ref(*args, W, keep))
+        _hold_fill_edges(W, R, dev)
+
+
+def _hold_fill_edges(W, R, dev):
+    """The edge rows of tests/test_torch_fill.py on the kernel's own tile
+    edges, through both forms of the kernel, one launch a call."""
+    rng = np.random.default_rng(W + R)
+    edges = edges_of(R, fill.TILE_SLOTS, fill.PER_THREAD)
+    for name in FILL_CASES:
+        pos, val = fill_rows(name, R, W, edges, rng)
+        args = [torch.from_numpy(a).to(dev) for a in (pos, val)]
+        keeps = (None, KEEP_DISTINCT, KEEP_DISTINCT - 1) \
+            if name == "keep" else (None,)
+        for keep in keeps:
+            before = fill.fill_records_delta2.launches
+            got = fill.fill_records_delta2(*args, W, keep)
+            assert fill.fill_records_delta2.launches == before + 1
+            _assert_equal(got, fill.fill_records_delta2_ref(*args, W, keep))
+        before = fill.fill_records_delta.launches
+        got = fill.fill_records_delta(*args, W)
+        assert fill.fill_records_delta.launches == before + 1
+        _assert_equal([got], [fill.fill_records_delta_ref(*args, W)])
+
+
+@pytest.mark.parametrize("W,R", [(4099, 5000), (65536, 60000),
+                                 (65536, 70000)])
+def test_fill_kernel_on_edge_rows(W, R, dev):
+    """:func:`_hold_fill_edges` at the other widths, R below and above W
+    (one tile and several), the zeros unit's row and an all-literal row
+    among the edge rows; W = 4099 takes the scalar stores (W = 4096 is
+    held in :func:`test_fill_kernel_matches_plain`)."""
+    _hold_fill_edges(W, R, dev)
+
+
+def test_fill_kernel_on_unaligned_records(dev):
+    """Record planes at a storage offset of one int (the kernel's 4-byte
+    loads) and an empty batch (no launch)."""
+    rng = np.random.default_rng(13)
+    pos, val = fill_rows("random", 9000, 4096, [], rng)
+    flat = torch.zeros((2, pos.size + 1), dtype=torch.int32, device=dev)
+    views = [flat[k, 1:].view(pos.shape) for k in range(2)]
+    for v, a in zip(views, (pos, val)):
+        v.copy_(torch.from_numpy(a))
+    assert views[0].data_ptr() % 16
+    _assert_equal(fill.fill_records_delta2(*views, 4096),
+                  fill.fill_records_delta2_ref(*views, 4096))
+    _assert_equal([fill.fill_records_delta(*views, 4096)],
+                  [fill.fill_records_delta_ref(*views, 4096)])
+    before = fill.fill_records_delta.launches
+    assert fill.fill_records_delta(views[0][:0], views[1][:0], 4096).shape \
+        == (0, 4096)
+    assert fill.fill_records_delta.launches == before
+
+
+def test_lznt1_decode_batch_of_native_chunks_on_card(dev):
+    """Native-encoded chunks (text, a run, random and zero bytes) decoded
+    on the card equal the CPU's decode, the fill launched once."""
+    r = np.random.default_rng(14)
+    words = [b"fill ", b"the ", b"spans ", b"of ", b"records "]
+    data = (b"".join(words[i] for i in r.integers(0, 5, 9000))[:40000]
+            + b"ab" * 5000 + r.integers(0, 256, 9000, dtype=np.uint8)
+            .tobytes() + bytes(12000))
+    payloads, comps = lz.split_stream(Native().lznt1_compress(data))
+    batch = lz.pack_chunks(payloads, comps, dev)
+    before = fill.fill_records_delta.launches
+    got = lz.decode_batch(*batch)
+    assert fill.fill_records_delta.launches == before + 1
+    _assert_equal(got, lz.decode_batch(*(t.cpu() for t in batch)))
+    assert lz.joined_output(got[0], got[1]) == data
 
 
 def _far_states(width):

@@ -4,7 +4,7 @@ Counterpart of ``tpucomp/codecs/lznt1.py``.  One row of a batch is one
 4 KiB chunk.  The decode pipeline:
 
   parse (kernel)  -> token records per payload byte step
-  fill            -> per output byte: its token's literal or displacement
+  fill (kernel)   -> per output byte: its token's literal or displacement
   near resolve (kernel) -> copies inside each 512-byte segment resolved,
                      the rest tagged with their absolute source
   far level (kernel)    -> pointer doubling over the whole row
@@ -33,8 +33,8 @@ import torch
 from ..config import DEFAULT, MatchFinderConfig
 from ..errors import ArgError, DataError
 from ..kernels.commit import greedy_commit_layout
-from ..kernels.common import (far_rounds, fill_records_delta, place_monotone,
-                              scatter_sorted_or)
+from ..kernels.common import far_rounds, place_monotone, scatter_sorted_or
+from ..kernels.fill import fill_records_delta
 from ..kernels.lznt1_parse import COPY_BIT, lznt1_parse
 from ..kernels.match import extend_saturated, hash_best_match
 from ..kernels.resolve import SEG, resolve_near
