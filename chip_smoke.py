@@ -44,6 +44,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    time on the whole batch, the sub-batch and the random unit alone.  How
    many rows the full-row level swept and how many ran its round loop
    (the units' rows and the malformed rows apart; no unit's row may).
+   The probes also in runs of ``BURST`` beside ``clone()`` of their plane,
+   with the host's time to issue a call, and on 546 rows that each hold
+   one chain of 61440 tags at 1, 2 and 5 rounds.
 6. XH main path, with every launch count set to 0 first:
    ``decompress_batch("xpress_huff", ...)`` of the 514 units, equal to
    them (16 sampled units also to the native C decoder); the same units
@@ -51,7 +54,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    fast_resolve=True)``; a corrupt unit must raise ``DataError``; every XH
    kernel must have launched.  Then GB/s of ``decode_batch`` (resident)
    and ``decompress_batch``, the median of 5; the host steps; the device
-   stages; peak memory; and one ``decompress_batch`` under the profiler.
+   stages, of the native and of the resolved streams (with the probes);
+   peak memory; and one ``decompress_batch`` under the profiler.
 
 7. Encode kernel vs plain: the corpus's 8208 chunks as one [8208, 4096]
    batch on the card.  The run matcher, the row sort (the hash sort's key
@@ -60,6 +64,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    and the greedy walk with and without the layout sums (with the rounds
    its rows took), each against its plain version on the same tensors,
    equal exactly; each one's time, its plain version's and its bound.
+   The run matcher also in runs of ``BURST`` beside ``x.clone()`` and
+   ``fill_`` of its output planes, with the host's time to issue a call
+   (so too in phases 9 and 11).
 8. Encode main path, with the encode kernels' launch counts set to 0
    first: ``tpucomp_torch.compress("lznt1", data)`` of the corpus, equal
    to ``compress(..., device="cpu")`` (the plain versions end to end) and
@@ -84,10 +91,12 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    kernels (fill, near walk, 4 KiB level, row level, with the row
    level's branches as in phase 5; the fill as in phase 5, and on the
    zeros unit's row alone); then the encode
-   kernels at [514, 65536]: the run matcher, the row sort of the hash key
-   and of the un-sort (beside ``torch.sort`` + ``gather``) and the greedy
-   walk (with its rounds, and its time on rows with no chain and on all
-   literals), each against its plain version, with their times.
+   kernels at [514, 65536]: the run matcher (also on 514 all-zero rows,
+   the zeros unit's row alone and 514 rows of random bytes), the row sort
+   of the hash key and of the un-sort (beside ``torch.sort`` + ``gather``)
+   and the greedy walk (with its rounds, and its time on rows with no
+   chain and on all literals), each against its plain version, with
+   their times.
 10. Xpress main path, with every launch count set to 0 first:
    ``decompress_batch("xpress", ...)`` of the 514 streams, equal to the
    units (16 sampled also to the native C decoder);
@@ -119,8 +128,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    (resident) and ``compress_batch``, the median of 5; the stages; peak
    memory; one ``compress_batch`` under the profiler.
 
-The last two lines are JSON: the kernels (the fill's entry also lists
-its three shapes under ``shapes``), and ``{"ok": true, "device":
+The last two lines are JSON: the kernels (the entries of the fill, the
+run matcher and the probes also list each shape and input under
+``shapes``, with its back-to-back, host and yardstick times), and
+``{"ok": true, "device":
 ...}``.  The script exits nonzero, printing neither, when CUDA is absent.
 It never imports JAX or the tpucomp package: it builds the native C codec
 from its source with the host C compiler.
@@ -218,6 +229,40 @@ def burst_ms(fn, reps: int) -> list[float]:
         end.synchronize()
         times.append(start.elapsed_time(end) / BURST)
     return times
+
+
+def host_ms(fn, reps: int) -> list[float]:
+    """The host's time in ms to issue ``fn`` (its checks, allocations and
+    launches) on an idle card, not waiting for the card: while the host
+    works the card waits, so a call's time exceeds its back-to-back time
+    by about as much."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return times
+
+
+def time_in_turns(fns: dict, turns: int = 3, reps: int = 5) -> None:
+    """Time each function of ``fns`` (label -> function) a call (CUDA
+    events), in runs of ``BURST`` calls back to back and by the host's
+    time to issue a call, all of them in turn, ``turns`` times over; print
+    the median of the turns' medians, with the turns."""
+    hows = {"a call": cuda_ms, f"in runs of {BURST}": burst_ms,
+            "host, a call": host_ms}
+    got = {(name, how): [] for name in fns for how in hows}
+    for _ in range(turns):
+        for name, fn in fns.items():
+            for how, timer in hows.items():
+                got[name, how].append(statistics.median(timer(fn, reps=reps)))
+    for (name, how), ms in got.items():
+        print(f"  {name}, {how}: {statistics.median(ms):.4f} ms (turns "
+              f"{', '.join(f'{t:.4f}' for t in ms)})")
 
 
 def clock(steps: dict, name: str, fn):
@@ -455,49 +500,93 @@ def fill_bytes(rec_pos, U, outs) -> int:
     return nbytes(rec_pos, *outs) + 32 * sectors
 
 
+def burst_case(kernels, name, where, fn, ref, args, yard, yard_label,
+               replaces=None, reps=20, plain_reps=3, need=None, extra=None):
+    """:func:`hold_to_plain` of kernel wrapper ``fn`` on ``args``; then its
+    time in runs of ``BURST`` calls back to back, the host's time to issue
+    one call, and a yardstick ``yard`` that moves the same bytes, in runs
+    of ``BURST`` too.  The shape joins the ``shapes`` of kernel ``name``'s
+    entry in ``kernels`` (with ``extra``); the entry is made with this
+    shape's times where ``replaces`` is given and it has none yet.
+    Returns the kernel's output."""
+    got, max_err, ms, plain_ms, moved = hold_to_plain(
+        where, name, fn, ref, args, reps=reps, plain_reps=plain_reps,
+        need=need)
+    b2b = statistics.median(burst_ms(lambda: fn(*args), reps=5))
+    host = statistics.median(host_ms(lambda: fn(*args), reps=5))
+    yard_ms = statistics.median(burst_ms(yard, reps=5))
+    print(f"{name} ({where}): {b2b:.4f} ms back to back ({BURST} calls a "
+          f"run), the host {host:.4f} ms to issue a call; {yard_label} "
+          f"{yard_ms:.4f} ms back to back")
+    entry = next((k for k in kernels if k["name"] == name), None)
+    if entry is None:
+        require(replaces is not None, f"{name}: no entry to add {where} to")
+        entry = kernel_entry(name, replaces, max_err, ms, plain_ms, moved)
+        entry["shapes"] = []
+        kernels.append(entry)
+    entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+    entry["shapes"].append({
+        "where": where, **(extra or {}), "ms": ms, "back_to_back_ms": b2b,
+        "host_ms": host, "yardstick_ms": yard_ms, "plain_ms": plain_ms,
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3})
+    return got
+
+
 def fill_case(kernels, where, fn, ref, args, plain_reps=3):
-    """:func:`hold_to_plain` of a form of the record fill
+    """:func:`burst_case` of a form of the record fill
     (``fill_records_delta2``, or ``fill_records_delta``, the value plane
     alone) on ``args`` (rec_pos, rec_val, U[, keep]), its bound
-    :func:`fill_bytes`; then its time in runs of ``BURST`` calls back to
-    back, beside a yardstick that moves the records twice and the planes
-    once in as many calls (``clone()`` of the two record planes and
-    ``fill_`` of the output planes).  Unless ``kernels`` is None, add the
-    shape to the ``fill_records`` entry's ``shapes`` (the entry is made,
-    with its times, at the first shape).  Returns the kernel's output."""
+    :func:`fill_bytes`, beside a yardstick that moves the records twice
+    and the planes once (``clone()`` of the two record planes and
+    ``fill_`` of the output planes).  Returns the kernel's output."""
     import torch
 
     recs = args[:2]
-    got, max_err, ms, plain_ms, moved = hold_to_plain(
-        where, "fill_records", fn, ref, args, reps=20, plain_reps=plain_reps,
-        need=lambda outs: fill_bytes(recs[0], args[2], outs))
-    outs = (got,) if isinstance(got, torch.Tensor) else tuple(got)
-    b2b = statistics.median(burst_ms(lambda: fn(*args), reps=5))
-    planes = [torch.empty_like(o) for o in outs]
-    yard = statistics.median(burst_ms(lambda: (
-        [r.clone() for r in recs], [p.fill_(0) for p in planes]), reps=5))
-    N, R = recs[0].shape
-    form = "two planes" if len(outs) > 1 else "value plane"
-    print(f"fill_records ({where}, records [{N}, {R}] -> {form} "
-          f"{list(outs[0].shape)}): {b2b:.4f} ms back to back ({BURST} "
-          f"calls a run) beside {yard:.4f} ms for clone() of the record "
-          f"planes + fill_ of the output planes")
-    if kernels is not None:
-        entry = next((k for k in kernels if k["name"] == "fill_records"),
-                     None)
-        if entry is None:
-            entry = kernel_entry("fill_records",
-                                 "tpucomp/kernels/fill_pallas.py:180",
-                                 max_err, ms, plain_ms, moved)
-            entry["shapes"] = []
-            kernels.append(entry)
-        entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
-        entry["shapes"].append({
-            "where": where, "records": [N, R], "out": list(outs[0].shape),
-            "planes": min(len(outs), 2), "ms": ms, "back_to_back_ms": b2b,
-            "yardstick_ms": yard, "plain_ms": plain_ms,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3})
-    return got
+    N = recs[0].shape[0]
+    # the outputs: the value plane, or the value and position planes and
+    # the overflow flags
+    two = fn.__name__ == "fill_records_delta2"
+    planes = [recs[0].new_empty(shape) for shape in (
+        [(N, args[2]), (N, args[2]), (N,)] if two else [(N, args[2])])]
+    return burst_case(
+        kernels, "fill_records", where, fn, ref, args,
+        lambda: ([r.clone() for r in recs], [p.fill_(0) for p in planes]),
+        "clone() of the record planes + fill_ of the output planes",
+        replaces="tpucomp/kernels/fill_pallas.py:180",
+        plain_reps=plain_reps,
+        need=lambda outs: fill_bytes(recs[0], args[2], outs),
+        extra={"records": list(recs[0].shape), "out": [N, args[2]],
+               "planes": 1 + two})
+
+
+def runs_case(kernels, where, x, disps):
+    """:func:`burst_case` of the run matcher on ``x`` (uint8 [N, U]),
+    beside ``x.clone()`` and ``fill_`` of its output planes."""
+    import torch
+
+    from tpucomp_torch.kernels import runs
+
+    planes = torch.empty((len(disps), *x.shape), dtype=torch.int32,
+                         device=x.device)
+    burst_case(kernels, "run_matchlens", where, runs.run_matchlens,
+               runs.run_matchlens_ref, (x, disps),
+               lambda: (x.clone(), planes.fill_(0)),
+               "x.clone() + fill_ of the output planes",
+               replaces="tpucomp/kernels/runs_pallas.py:82",
+               extra={"shape": list(x.shape), "disps": list(disps)})
+
+
+def probe_case(kernels, where, states, rounds):
+    """:func:`burst_case` of the archive probe on ``states`` (int32 [N,
+    U]) with ``rounds``, beside ``states.clone()``."""
+    from tpucomp_torch.kernels import gather
+
+    return burst_case(kernels, "far_probe", where, gather.far_probe,
+                      gather.far_probe_ref, (states, rounds),
+                      lambda: states.clone(), "clone() of the plane",
+                      replaces="tpucomp/kernels/gather_pallas.py:150",
+                      reps=10, extra={"shape": list(states.shape),
+                                      "rounds": rounds})
 
 
 def sort_case(where, label, planes, reps=10, plain_reps=3):
@@ -589,7 +678,8 @@ def xh_phases(dev, units, native, kernels) -> dict:
     import tpucomp_torch
     from tpucomp_torch.codecs import xpress_huff as xh
     from tpucomp_torch.kernels import fill, gather, resolve, xh_parse
-    from tpucomp_torch.kernels.common import SEG_LEVEL, SEG_LEVEL_CAP
+    from tpucomp_torch.kernels.common import (ARCHIVE_PROBE_BUDGET, FAR_TAG,
+                                              SEG_LEVEL, SEG_LEVEL_CAP)
 
     rng = np.random.default_rng(SEED + 1)
     units = xh_units(units, rng)
@@ -667,14 +757,14 @@ def xh_phases(dev, units, native, kernels) -> dict:
     # the zeros unit's row alone (two records: a literal, then one match
     # over the whole row), and every row all literals
     z = len(units) - 1
-    fill_case(None, "XH, the zeros unit's row alone",
+    fill_case(kernels, "XH, the zeros unit's row alone",
               fill.fill_records_delta2, fill.fill_records_delta2_ref,
               (rec_pos[z:z + 1], rec_val[z:z + 1], UNIT, UNIT))
     gen = torch.Generator(dev).manual_seed(SEED)
     lit = (torch.arange(UNIT, dtype=torch.int32, device=dev).expand(
         N, UNIT).contiguous(), torch.randint(
             0, 256, (N, UNIT), dtype=torch.int32, device=dev, generator=gen))
-    fill_case(None, "all literals", fill.fill_records_delta2,
+    fill_case(kernels, "all literals", fill.fill_records_delta2,
               fill.fill_records_delta2_ref, (*lit, UNIT, UNIT))
     del lit
     err = (errk != 0) | (filled[2] != 0) | (p_final < batch[2])
@@ -697,8 +787,6 @@ def xh_phases(dev, units, native, kernels) -> dict:
          near_in, (near,), None),
         ("far_level", gather.far_level, gather.far_level_ref, seg_in, (seg,),
          None),
-        ("far_probe", gather.far_probe, gather.far_probe_ref, (seg,),
-         (probed,), "tpucomp/kernels/gather_pallas.py:150"),
         ("far_row", gather.far_row, gather.far_row_ref, (probed,), (row,),
          "tpucomp/kernels/gather_pallas.py:315"),
     ]
@@ -716,7 +804,17 @@ def xh_phases(dev, units, native, kernels) -> dict:
             continue
         kernels.append(kernel_entry(name, replaces, max_err, ms, plain_ms,
                                     moved))
+    probe_case(kernels, "XH", seg, ARCHIVE_PROBE_BUDGET)
+    # one chain a row through 61440 tags (each points one back), the
+    # probe's longest walk: every tag live through every hop
+    chain = torch.randint(0, 256, (N, UNIT), dtype=torch.int32, device=dev,
+                          generator=gen)
+    chain[:, 4096:] = FAR_TAG | torch.arange(4095, UNIT - 1,
+                                             dtype=torch.int32, device=dev)
+    for r in (1, 2, 5):
+        probe_case(kernels, f"chain rows, rounds = {r}", chain, r)
     del parsed, parsed_ref, filled, near_in, near, seg, probed, row, args
+    del chain
     del sub_args, rec_pos, rec_val, batch, fill_in, seg_in
 
     # ---- 6. main path ---------------------------------------------------------
@@ -780,7 +878,6 @@ def xh_phases(dev, units, native, kernels) -> dict:
         med = statistics.median(ms)
         print(f"xh {label}: median {med:.4f} ms of "
               f"{[round(m, 4) for m in ms]} -> {total / med / 1e6:.4f} GB/s")
-    del res_batch
     steps: dict[str, list[float]] = {}
     for _ in range(3):
         b = clock(steps, "pack_units (host batch, copy to device)",
@@ -792,28 +889,37 @@ def xh_phases(dev, units, native, kernels) -> dict:
     print("xh decompress_batch steps, host clock, median of 3 (ms): "
           + "; ".join(f"{k} {statistics.median(v):.4f}"
                       for k, v in steps.items()))
-    # the resident decode, stage by stage (each synchronised)
-    stages: dict[str, list[float]] = {}
-    for _ in range(3):
-        t = {}
-        for name, fn in (
-                ("tables", lambda: t.update(a=xh.parse_inputs(*batch))),
-                ("xh_parse", lambda: t.update(p=xh_parse.xh_parse(*t["a"],
-                                                                  UNIT))),
-                ("fill_records", lambda: t.update(f=fill.fill_records_delta2(
-                    t["p"][0], t["p"][1], UNIT, UNIT))),
-                ("near_inputs (fold)", lambda: t.update(
-                    n=xh.near_inputs(t["f"][0], t["f"][1]))),
-                ("resolve_near", lambda: t.update(
-                    r=resolve.resolve_near(*t["n"]))),
-                ("far_level", lambda: t.update(s=gather.far_level(
-                    t["r"], SEG_LEVEL, SEG_LEVEL_CAP, False))),
-                ("far_row", lambda: t.update(w=gather.far_row(t["s"])))):
-            stages.setdefault(name, []).extend(cuda_ms(fn, reps=1, warmup=0))
-        del t
-    print("xh decode_batch stages, CUDA events, median of 3 (ms): "
-          + "; ".join(f"{k} {statistics.median(v):.4f}"
-                      for k, v in stages.items()))
+    # the resident decode, stage by stage (each synchronised); the
+    # resolved archive's adds the probes before the row level
+    for label, b, fast in (("", batch, False),
+                           (" fast_resolve", res_batch, True)):
+        stages: dict[str, list[float]] = {}
+        for _ in range(3):
+            t = {}
+            probe = [("far_probe", lambda: t.update(s=gather.far_probe(
+                t["s"], ARCHIVE_PROBE_BUDGET)))] if fast else []
+            for name, fn in (
+                    ("tables", lambda: t.update(a=xh.parse_inputs(*b))),
+                    ("xh_parse", lambda: t.update(
+                        p=xh_parse.xh_parse(*t["a"], UNIT))),
+                    ("fill_records", lambda: t.update(
+                        f=fill.fill_records_delta2(t["p"][0], t["p"][1],
+                                                   UNIT, UNIT))),
+                    ("near_inputs (fold)", lambda: t.update(
+                        n=xh.near_inputs(t["f"][0], t["f"][1]))),
+                    ("resolve_near", lambda: t.update(
+                        r=resolve.resolve_near(*t["n"]))),
+                    ("far_level", lambda: t.update(s=gather.far_level(
+                        t["r"], SEG_LEVEL, SEG_LEVEL_CAP, False))),
+                    *probe,
+                    ("far_row", lambda: t.update(w=gather.far_row(t["s"])))):
+                stages.setdefault(name, []).extend(
+                    cuda_ms(fn, reps=1, warmup=0))
+            del t
+        print(f"xh decode_batch{label} stages, CUDA events, median of 3 "
+              "(ms): " + "; ".join(f"{k} {statistics.median(v):.4f}"
+                                   for k, v in stages.items()))
+    del res_batch
     profile_device("xh decompress_batch", lambda: tpucomp_torch.decompress_batch(
         "xpress_huff", streams, lens, device="cuda"))
     return launches
@@ -852,14 +958,7 @@ def encode_phases(dev, data: bytes, native, native_stream: bytes,
               f"ms ({moved} bytes)")
 
     disps = tuple(MATCH.run_disps)
-    got, err, ms, plain_ms = check("run_matchlens", runs.run_matchlens,
-                                   runs.run_matchlens_ref, (chunks, disps))
-    moved = nbytes(chunks, *got)
-    show(f"run_matchlens (d = {disps})", ms, plain_ms, moved)
-    kernels.append(kernel_entry("run_matchlens",
-                                "tpucomp/kernels/runs_pallas.py:82", err, ms,
-                                plain_ms, moved))
-    del got
+    runs_case(kernels, "LZNT1 encode", chunks, disps)
 
     # the hash sort: the chain keys alone, then the route's word gathers
     key = match.hash_keys(chunks, MATCH.hash_bits, 12)
@@ -1208,7 +1307,7 @@ def xpress_phases(dev, units, native, kernels) -> dict:
     filled = fill_case(kernels, "Xpress", fill.fill_records_delta2,
                        fill.fill_records_delta2_ref, fill_in)
     z = len(units) - 1
-    fill_case(None, "Xpress, the zeros unit's row alone",
+    fill_case(kernels, "Xpress, the zeros unit's row alone",
               fill.fill_records_delta2, fill.fill_records_delta2_ref,
               (rec_pos[z:z + 1], rec_val[z:z + 1], UNIT))
     near_in = near_inputs(filled[0], filled[1])
@@ -1229,8 +1328,14 @@ def xpress_phases(dev, units, native, kernels) -> dict:
     x = torch.from_numpy(units_np).to(dev)
     ulen = torch.tensor(lens, dtype=torch.int32, device=dev)
     disps = tuple(MATCH.run_disps)
-    entry("run_matchlens", runs.run_matchlens, runs.run_matchlens_ref,
-          (x, disps))
+    runs_case(kernels, "Xpress encode", x, disps)
+    # runs across every tile edge (all zeros: one run a row), the zeros
+    # unit's row alone, and random bytes (no run crosses an edge)
+    runs_case(kernels, "all-zero rows", torch.zeros_like(x), disps)
+    runs_case(kernels, "the zeros unit's row alone", x[-1:], disps)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    runs_case(kernels, "random rows", torch.randint(
+        0, 256, x.shape, dtype=torch.uint8, device=dev, generator=gen), disps)
 
     key = match.hash_keys(x, MATCH.hash_bits, 16)
     err, *_ = sort_case("Xpress", "sort_rows (hash key, 1 plane)", (key,))
@@ -1441,8 +1546,7 @@ def xh_encode_phases(dev, units, native, kernels) -> dict:
     print(f"xh encode kernel vs plain at [{N}, {UNIT}] (the units of phase 5), "
           f"config {MATCH.to_dict()}")
     disps = tuple(MATCH.run_disps)
-    check("run_matchlens", runs.run_matchlens, runs.run_matchlens_ref,
-          (x, disps), plain_reps=3)
+    runs_case(kernels, "XH encode", x, disps)
     key = match.hash_keys(x, MATCH.hash_bits, 16)
     err, *_ = sort_case("XH encode", "sort_rows (hash key, 1 plane)", (key,))
     fold_err(kernels, "sort_rows", err)

@@ -35,10 +35,8 @@ import argparse
 import concurrent.futures
 import ctypes
 import os
-import statistics
 import subprocess
 import sys
-import time
 
 import numpy as np
 
@@ -101,21 +99,6 @@ def xpress_records(smoke, native, units, dev):
         native, units, streams, shortest, rng)
     batch = xp.pack_units([s for s, _ in rows], [o for _, o in rows], U, dev)
     return xp_parse.xp_parse(*batch, U)[:2]
-
-
-def host_ms(fn, reps: int) -> list[float]:
-    """The host's time in ms to issue ``fn`` (its launches, allocations
-    and checks) on an idle card, not waiting for the card."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    return times
 
 
 def main() -> None:
@@ -223,19 +206,7 @@ def main() -> None:
         planes = [torch.empty_like(w) for w in want]
         runs["clone + fill_ (yardstick)"] = lambda: (
             rec_pos.clone(), rec_val.clone(), [p.fill_(0) for p in planes])
-        hows = ("a call", f"in runs of {smoke.BURST}", "host, a call")
-        turns = {(name, how): [] for name in runs for how in hows}
-        for _ in range(TURNS):
-            for name, fn in runs.items():
-                turns[name, hows[0]].append(statistics.median(
-                    smoke.cuda_ms(fn, reps=REPS)))
-                turns[name, hows[1]].append(
-                    statistics.median(smoke.burst_ms(fn, reps=REPS)))
-                turns[name, hows[2]].append(
-                    statistics.median(host_ms(fn, reps=REPS)))
-        for (name, how), ms in turns.items():
-            print(f"  {name}, {how}: {statistics.median(ms):.4f} ms (turns "
-                  f"{', '.join(f'{t:.4f}' for t in ms)})")
+        smoke.time_in_turns(runs, TURNS, REPS)
 
 
 if __name__ == "__main__":

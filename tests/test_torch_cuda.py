@@ -26,12 +26,16 @@ from tpucomp_torch.kernels import xp_parse
 from test_torch_commit import segment_walk, walk_rows
 from test_torch_far_row import CASES as FAR_CASES, WIDTHS as FAR_WIDTHS
 from test_torch_far_row import NARROW, case_rows, far_row_model, narrow_rows
+from test_torch_far_probe import CASES as PROBE_CASES
+from test_torch_far_probe import case_rows as probe_rows
 from test_torch_fill import CASES as FILL_CASES, KEEP_DISTINCT
 from test_torch_fill import case_rows as fill_rows, edges_of
 from test_torch_lznt1_parse import CASES as PARSE_CASES
 from test_torch_lznt1_parse import WIDTHS as PARSE_WIDTHS
 from test_torch_lznt1_parse import case_rows as parse_rows, walk
 from test_torch_resolve_near import CASES, case_inputs
+from test_torch_run_matchlens import CASES as RUNS_CASES
+from test_torch_run_matchlens import case_rows as runs_rows
 from test_torch_xp_walk import literals, design_rows, pack, walk_steps
 from test_torch_xp_walk import write_stream as xp_write_stream
 from test_torch_xh_segment import (KINDS, Row, boundary_states, code_lengths,
@@ -416,16 +420,39 @@ def _far_states(width):
     return x
 
 
-@pytest.mark.parametrize("width", [XU, 65536])
-def test_far_kernels_match_plain(width, dev):
-    xs = torch.from_numpy(_far_states(width)).to(dev)
+@pytest.mark.parametrize("width,case", [
+    (XU, "far_states"), (65536, "far_states"),
+    *((w, c) for w in (4096, 65536) for c in PROBE_CASES)])
+def test_far_kernels_match_plain(width, case, dev):
+    """Near-walk states (``_far_states``, or an edge case of
+    ``tests/test_torch_far_probe.py``) through the 4 KiB level, the probes
+    at 0, 1, 2 (tpucomp's) and 5 rounds, and the row level."""
+    x = (_far_states(width) if case == "far_states"
+         else probe_rows(case, width))
+    xs = torch.from_numpy(x).to(dev)
     seg_args = (xs, common.SEG_LEVEL, common.SEG_LEVEL_CAP, False)
     seg = gather.far_level(*seg_args)
     _assert_equal([seg], [gather.far_level_ref(*seg_args)])
-    _assert_equal([gather.far_probe(seg)], [gather.far_probe_ref(seg)])
-    _assert_equal([gather.far_probe(xs, 1)], [gather.far_probe_ref(xs, 1)])
+    for states in (xs, seg):
+        for rounds in (0, 1, 2, 5):
+            before = gather.far_probe.launches
+            got = gather.far_probe(states, rounds)
+            assert gather.far_probe.launches == before + 1
+            _assert_equal([got], [gather.far_probe_ref(states, rounds)])
     _assert_equal([gather.far_row(seg)], [gather.far_row_ref(seg)])
     _assert_equal([gather.far_row(xs)], [gather.far_row_ref(xs)])
+
+
+@pytest.mark.parametrize("U", [1001, 4099])
+def test_far_probe_kernel_on_unaligned_rows(U, dev):
+    """Widths that are no multiple of 4, and rows that start off a 16-byte
+    boundary: the probe's scalar loads and stores."""
+    for case in PROBE_CASES:
+        xs = torch.from_numpy(probe_rows(case, U)).to(dev)
+        for states in (xs, xs[1:]):
+            for rounds in (0, 1, 2, 5):
+                _assert_equal([gather.far_probe(states, rounds)],
+                              [gather.far_probe_ref(states, rounds)])
 
 
 def _hold_far_row(xs):
@@ -622,10 +649,17 @@ def _byte_rows(U, seed):
     return x
 
 
-@pytest.mark.parametrize("U", [512, 4096, 5000, 65536])
-def test_run_matchlens_kernel_matches_plain(U, dev):
-    xs = torch.from_numpy(_byte_rows(U, U)).to(dev)
-    disps = (1, 2, 3, 7, 300)  # two launches: 4 displacements each at most
+@pytest.mark.parametrize("U,case", [
+    *((u, "byte_rows") for u in (512, 1001, 4096, 5000, 65536)),
+    *((u, c) for u in (4096, 65536) for c in RUNS_CASES)])
+def test_run_matchlens_kernel_matches_plain(U, case, dev):
+    """``_byte_rows``, or an edge case of ``tests/test_torch_run_matchlens.py``
+    built for the kernel's tiles and for narrow ones."""
+    x = (_byte_rows(U, U) if case == "byte_rows" else np.concatenate(
+        [runs_rows(case, U, tw) for tw in (runs.TILE, 32)]))
+    xs = torch.from_numpy(x).to(dev)
+    # two launches, 4 displacements each at most; the last past the row
+    disps = (1, 2, 3, 7, 255, 300, U + 5)
     before = runs.run_matchlens.launches
     got = runs.run_matchlens(xs, disps)
     assert runs.run_matchlens.launches == before + 2

@@ -21,7 +21,8 @@ the Pallas gathers they drive (``tpucomp/kernels/common.py``,
   chunk's end (every real row); the level's rounds for the others.
 - :func:`far_probe`: the value-chase rounds of ``_far_rounds(fast=True)``
   (``_far_probe_round``), the fetch ``probe_gather_pairs``.  Launches
-  ``csrc/far_probe.cu``, one block per row.
+  ``csrc/far_probe.cu``: one pass, each tag following at most ``rounds``
+  hops through the input plane, blocks of 1024 positions.
 
 Each runs its plain PyTorch version (``*_ref``) on CPU tensors.
 
@@ -239,7 +240,12 @@ def far_probe(out: torch.Tensor,
     of ``out[j] = byte of out[src]`` for every tag whose source is already
     a byte (a source outside the row reads 0); a tag whose source is still
     tagged stays.  Takes and returns int32 [N, U] in the near walk's
-    encoding (bytes, ``FAR_TAG | src``)."""
+    encoding (bytes, ``FAR_TAG | src``).
+
+    The rounds are synchronous, so a tag ends as a byte exactly when its
+    chain through the input reaches a byte (or a source past the row)
+    within ``rounds`` hops: the kernel follows each chain that far in one
+    pass and writes every position once; ``rounds`` <= 0 copies."""
     if not _build.use_kernel(out):
         return far_probe_ref(out, rounds)
     _check(out, out.shape[1])
@@ -247,8 +253,7 @@ def far_probe(out: torch.Tensor,
     src = out.contiguous()
     res = torch.empty_like(src)
     if N:
-        scratch = torch.empty_like(src) if rounds > 1 else res
-        _build.launch("far_probe", [src, res, scratch], [N, U, rounds])
+        _build.launch("far_probe", [src, res], [N, U, rounds])
         far_probe.launches += 1
     return res
 

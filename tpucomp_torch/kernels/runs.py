@@ -7,7 +7,10 @@ in ``disps``, ``ml_d[n, p]`` is the length of the run of
 reach into whatever the row holds past a chunk's end (its zero padding),
 as tpucomp's do; the encoder clips them later.
 :func:`run_matchlens` launches ``csrc/run_matchlens.cu`` on CUDA tensors
-and runs :func:`run_matchlens_ref` on CPU tensors.
+(a block a tile of ``TILE`` positions, every displacement of the launch
+from one load of the bytes; rows of several tiles first get each tile's
+first break from a small first kernel of the same launch) and runs
+:func:`run_matchlens_ref` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ import torch
 
 from . import _build
 
-MAX_ROW = 1 << 16  # the kernel holds the row's bytes in shared memory
+MAX_ROW = 1 << 16  # the encoders' widest row (the kernel's tiles take any)
 DISPS_PER_LAUNCH = 4  # displacements one launch takes (C int arguments)
+TILE = 4096  # positions a block of the kernel takes
 
 
 def _check(x, disps):
@@ -61,10 +65,14 @@ def run_matchlens(x: torch.Tensor, disps) -> list[torch.Tensor]:
         raise ValueError(f"rows of at most {MAX_ROW} bytes, got {U}")
     out = torch.empty((len(disps), N, U), dtype=torch.int32, device=x.device)
     if N and U:
+        # each (row, tile)'s first break per displacement, written by the
+        # launch's first kernel when a row has several tiles
+        first = torch.empty((N, -(-U // TILE), DISPS_PER_LAUNCH),
+                            dtype=torch.int32, device=x.device)
         for k in range(0, len(disps), DISPS_PER_LAUNCH):
             ds = disps[k:k + DISPS_PER_LAUNCH]
             ds += (0,) * (DISPS_PER_LAUNCH - len(ds))
-            _build.launch("run_matchlens", [x, out[k]],
+            _build.launch("run_matchlens", [x, first, out[k]],
                           [N, U, min(DISPS_PER_LAUNCH, len(disps) - k), *ds])
             run_matchlens.launches += 1
     return list(out.unbind(0))
