@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tpucomp_torch on one NVIDIA GPU: LZNT1 decode, Xpress
 Huffman (XH) batched decode, LZNT1 encode, plain Xpress unit decode and
-encode, and XH encode end to end.
+encode, XH encode and the one-shot XH decode end to end.
 
     python3 chip_smoke.py
 
@@ -127,6 +127,27 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    Then the ratio beside the native C encoder's; GB/s of ``encode_batch``
    (resident) and ``compress_batch``, the median of 5; the stages; peak
    memory; one ``compress_batch`` under the profiler.
+13. XH one-shot kernels vs plain: the speculative batch of the corpus's
+   first 8 MiB by the native C XH encoder (every Kraft candidate a full
+   block over an all-zero history: [N, 131072] rows of [history |
+   block]).  The parse with hist_len and the span against its plain
+   version on the 8 rows without err whose spans are the shortest and on
+   the fixpoint batch of ``XH_VECTOR`` (each block over the true output
+   before it), the near walk, the 4 KiB level and the row level on the
+   whole batch, each equal exactly, with both times and the bound; the
+   parse's rounds; the row level's branches (no row without err may run
+   its round loop).
+14. XH one-shot main path, with every launch count set to 0 first:
+   ``decompress("xpress_huff", ...)`` of the 8 MiB stream (the
+   speculative path; also equal to the native C decoder's), of the first
+   10 x 65536 - 1234 bytes (a partial last block), of the whole corpus
+   (513 blocks: more Kraft candidates than 512, so the sequential walk)
+   and of ``XH_VECTOR`` (matches across blocks: fixpoint passes), each
+   equal to its input; a stream cut short must raise ``DataError``; the
+   parse, fill, near walk and both far levels must have launched.  Then
+   GB/s of each call, the median of 5 (the whole corpus: 1 run), its
+   batch decodes and host steps; peak memory; one call under the
+   profiler.
 
 The last two lines are JSON: the kernels (the entries of the fill, the
 run matcher and the probes also list each shape and input under
@@ -164,6 +185,14 @@ XP_SUB_SHORTEST = 32
 XHE_SUB_CORPUS = 29  # corpus units in the XH encode host sub-batch
 ONESHOT_BYTES = 200 << 10
 BURST = 10  # calls a run, timed back to back
+# the one-shot XH decode's cross-block stream: the oracle's encoding
+# (cross_block=True) of benchmarks.corpus._synthetic(3 * 65536), whose
+# sha256 this is (tests/test_torch_xh_oneshot.py regenerates both)
+XH_VECTOR = os.path.join("tests", "data", "xh_cross_block.bin")
+XH_VECTOR_INPUT_SHA256 = \
+    "d20845339a4c664554b3c4a8e437c4d10b31aa82287abba7dec701e948e955c6"
+XH_SPEC_BYTES = 8 << 20  # the corpus prefix of the speculative path
+XH_TEN_BLOCKS = 10 * UNIT - 1234  # tpucomp's test shape: a partial block
 
 
 # H100 SXM device memory rate (NVIDIA's data sheet): every kernel here is
@@ -1705,6 +1734,210 @@ def xh_encode_phases(dev, units, native, kernels) -> dict:
     return launches
 
 
+def shape_entry(kernels, name, where, got) -> None:
+    """Fold :func:`hold_to_plain`'s result ``got`` (output, max abs err,
+    kernel ms, plain ms, bytes moved) into kernel ``name``'s entry, as a
+    shape of its ``shapes``."""
+    _, max_err, ms, plain_ms, moved = got
+    k = next(k for k in kernels if k["name"] == name)
+    k["max_abs_err"] = max(k["max_abs_err"], max_err)
+    k.setdefault("shapes", []).append({
+        "where": where, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3})
+
+
+def xh_oneshot_phases(dev, data: bytes, native, kernels) -> dict:
+    """Phases 13 and 14, the one-shot XH decode.  Adds this path's
+    comparisons to the entries of the kernels it runs (as ``shapes``) and
+    returns the launches of every kernel on its main path."""
+    import torch
+
+    import tpucomp_torch
+    from benchmarks.corpus import _synthetic
+    from tpucomp_torch.codecs import xpress_huff as xh
+    from tpucomp_torch.kernels import fill, gather, resolve, xh_parse
+    from tpucomp_torch.kernels.common import SEG_LEVEL, SEG_LEVEL_CAP
+
+    t0 = time.perf_counter()
+    whole = native.xh_compress(data)
+    spec_data = data[:XH_SPEC_BYTES]
+    spec = native.xh_compress(spec_data)
+    ten_data = data[:XH_TEN_BLOCKS]
+    ten = native.xh_compress(ten_data)
+    print(f"xh one-shot: the corpus ({len(data)} bytes) encodes to "
+          f"{len(whole)} bytes, its first {XH_SPEC_BYTES} to {len(spec)}, "
+          f"its first {XH_TEN_BLOCKS} to {len(ten)} (native C XH "
+          f"encoder, {time.perf_counter() - t0:.2f} s)")
+    vec_data = _synthetic(3 * UNIT)
+    require(hashlib.sha256(vec_data).hexdigest() == XH_VECTOR_INPUT_SHA256,
+            "the cross-block vector's input has another sha256")
+    with open(os.path.join(ROOT, XH_VECTOR), "rb") as f:
+        vec = f.read()
+    print(f"xh one-shot: the cross-block vector {XH_VECTOR}, {len(vec)} "
+          f"bytes for {len(vec_data)} (sha256 of the input "
+          f"{XH_VECTOR_INPUT_SHA256})")
+
+    # ---- 13. kernel vs plain ------------------------------------------------
+    # the speculative batch of the 8 MiB stream: every Kraft candidate, a
+    # full block over an all-zero history of full reach
+    cands = xh._kraft_candidates(np.frombuffer(spec, np.uint8))
+    require(cands is not None, "the 8 MiB stream has over 512 candidates")
+    offs = [int(o) for o in cands]
+    n = len(offs)
+    P = xh.batch_width(len(spec), offs)
+    batch = xh.history_batch(spec, offs, [UNIT] * n, [None] * n, [UNIT] * n,
+                             P, dev)
+    args = xh.parse_inputs(*batch[:4])
+    hl = batch[5]
+    parsed = xh_parse.xh_parse(*args, UNIT, hist_len=hl, want_span=True)
+    rounds = xh_parse.xh_parse.rounds.float()
+    rec_pos, rec_val, p_final, errk, span = parsed
+    filled = fill.fill_records_delta2(rec_pos, rec_val, UNIT, UNIT)
+    ok = (errk == 0) & (filled[2] == 0) & (p_final >= batch[2])
+    print(f"xh one-shot speculative batch: {n} candidates ({int(ok.sum())} "
+          f"without err) in [{n}, {P}] slices, substep tier "
+          f"{int(batch[3][0])}; xh_parse rounds per row max "
+          f"{int(rounds.max())}, mean {float(rounds.mean()):.4f} (rows "
+          f"without err: max {int(rounds[ok].max())}, mean "
+          f"{float(rounds[ok].mean()):.4f})")
+    def parse_need(a, outs, ok):
+        """The bytes the parse must move: each row's body as far as its
+        span (all of it on a row with err), the rest of its inputs and its
+        outputs once."""
+        body = torch.where(ok, outs[4].clamp(max=a[1]), a[1]).clamp(min=0)
+        return int(body.sum()) + nbytes(*a[1:], *outs)
+
+    parse_ms = statistics.median(cuda_ms(lambda: xh_parse.xh_parse(
+        *args, UNIT, hist_len=hl, want_span=True), reps=5))
+    need = parse_need(args + (hl,), parsed, ok)
+    print(f"xh_parse (XH one-shot, the whole speculative batch): "
+          f"{parse_ms:.4f} ms, bound {need / HBM_BYTES_PER_S * 1e3:.4f} ms")
+
+    def hold_parse(where, a):
+        """The parse with hist_len (a's last) and the span against its
+        plain version, which loops once per body byte: timed once, its
+        output the one compared."""
+        want = []
+        plain_ms, = cuda_ms(lambda: want.append(xh_parse.xh_parse_ref(
+            *a[:-1], UNIT, a[-1], True)), reps=1, warmup=0)
+        got = xh_parse.xh_parse(*a[:-1], UNIT, hist_len=a[-1],
+                                want_span=True)
+        max_err = compare("xh_parse", got, want[0])
+        ms = statistics.median(cuda_ms(lambda: xh_parse.xh_parse(
+            *a[:-1], UNIT, hist_len=a[-1], want_span=True), reps=5))
+        moved = parse_need(a, got, got[3] == 0)
+        r = xh_parse.xh_parse.rounds
+        print(f"xh_parse ({where}, [{a[0].shape[0]}, {a[0].shape[1]}], "
+              f"longest body {int(a[1].max())} bytes, spans "
+              f"{got[4].tolist()}): equal to plain; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms; rounds {r.tolist()}")
+        shape_entry(kernels, "xh_parse", where,
+                    (got, max_err, ms, plain_ms, moved))
+        return got
+
+    # the eight rows without err whose spans are the shortest, and the
+    # vector's fixpoint batch (each block over the true output before it)
+    short = torch.argsort(torch.where(ok, span, 1 << 30))[:8]
+    hold_parse("XH one-shot, the 8 shortest speculative rows",
+               tuple(a[short] for a in args) + (hl[short],))
+    voffs = [int(o) for o in xh._kraft_candidates(np.frombuffer(vec,
+                                                                np.uint8))]
+    vb = xh.history_batch(
+        vec, voffs, [UNIT] * 3, [None, vec_data[:UNIT],
+                                 vec_data[UNIT:2 * UNIT]], [0, UNIT, UNIT],
+        xh.batch_width(len(vec), voffs), dev)
+    got = hold_parse("XH one-shot, the vector's fixpoint batch",
+                     xh.parse_inputs(*vb[:4]) + (vb[5],))
+    require(not bool(got[3].any()), "a vector block parsed with err")
+
+    planes = xh.history_planes(*xh.near_inputs(filled[0], filled[1]),
+                               batch[4])
+    where = f"XH one-shot [{n}, {2 * UNIT}]"
+    got = hold_to_plain(where, "resolve_near", resolve.resolve_near,
+                        resolve.resolve_near_ref, planes)
+    shape_entry(kernels, "resolve_near", where, got)
+    seg_in = (got[0], SEG_LEVEL, SEG_LEVEL_CAP, False)
+    got = hold_to_plain(where, "far_level", gather.far_level,
+                        gather.far_level_ref, seg_in)
+    shape_entry(kernels, "far_level", where, got)
+    got = hold_to_plain(where, "far_row", gather.far_row,
+                        gather.far_row_ref, (got[0],))
+    shape_entry(kernels, "far_row", where, got)
+    looped = gather.far_row.looped.bool()
+    print(f"far_row branches ({where}): rows without err swept "
+          f"{int((ok & ~looped).sum())}, round loop "
+          f"{int((ok & looped).sum())}; rows with err swept "
+          f"{int((~ok & ~looped).sum())}, round loop "
+          f"{int((~ok & looped).sum())}")
+    require(not bool((ok & looped).any()),
+            "a row without err took far_row's round loop (XH one-shot)")
+    first = got[0][offs.index(0), UNIT:].to(torch.uint8).cpu().numpy()
+    require(bool(ok[offs.index(0)]) and first.tobytes() == spec_data[:UNIT],
+            "the speculative batch's first block differs from the input")
+    del parsed, filled, planes, got, batch, args, vb, first
+
+    # ---- 14. main path --------------------------------------------------------
+    counters = launch_counters()
+    path = ("xh_parse", "fill_records_delta2", "resolve_near", "far_level",
+            "far_row")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    calls = {"8 MiB (speculative)": (spec, spec_data),
+             f"{XH_TEN_BLOCKS} bytes (tpucomp's test shape)": (ten, ten_data),
+             "the whole corpus (513 blocks)": (whole, data),
+             "the cross-block vector": (vec, vec_data)}
+    outs, stats = {}, {}
+    for label, (stream, want) in calls.items():
+        outs[label] = tpucomp_torch.decompress("xpress_huff", stream,
+                                               len(want), device="cuda")
+        stats[label] = dict(xh.decompress.stats)
+    try:
+        tpucomp_torch.decompress("xpress_huff", spec[:len(spec) // 2],
+                                 len(spec_data), device="cuda")
+        raised = False
+    except tpucomp_torch.DataError:
+        raised = True
+    launches = {fn.__name__: fn.launches for fn in counters
+                if fn.launches}
+    print(f"xh one-shot main path launches: {launches}")
+    for label, (stream, want) in calls.items():
+        require(outs[label] == want, f"xh one-shot decompress of {label} "
+                "differs from the input")
+        print(f"xh one-shot decompress of {label}: {len(want)} bytes equal "
+              f"to the input, {stats[label]['batch_decodes']} batch decodes")
+    require(native.xh_decompress(spec, len(spec_data))
+            == outs["8 MiB (speculative)"],
+            "the 8 MiB one-shot decode differs from the native C decoder")
+    print("xh one-shot: the 8 MiB decode equal to the native C decoder's")
+    require(raised, "a corrupt XH stream did not raise DataError")
+    print("xh one-shot corrupt stream: DataError raised")
+    for name in path:
+        require(launches.get(name, 0) > 0,
+                f"{name} never launched on the XH one-shot path")
+    print(f"xh one-shot peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    for label, (stream, want) in calls.items():
+        reps = 1 if len(want) == len(data) else 5
+        ms = cuda_ms(lambda: tpucomp_torch.decompress(
+            "xpress_huff", stream, len(want), device="cuda"), reps=reps,
+            warmup=0)
+        med = statistics.median(ms)
+        st = xh.decompress.stats
+        print(f"xh one-shot decompress of {label}: median {med:.4f} ms of "
+              f"{[round(m, 4) for m in ms]} -> {len(want) / med / 1e6:.4f} "
+              f"GB/s; {st['batch_decodes']} batch decodes; host steps of "
+              "the last run (s; a phase includes its batch decodes): "
+              + "; ".join(f"{k} {v:.4f}" for k, v in st["seconds"].items()))
+    profile_device("xh one-shot decompress (8 MiB)",
+                   lambda: tpucomp_torch.decompress(
+                       "xpress_huff", spec, len(spec_data), device="cuda"))
+    return {"fill_records": launches.pop("fill_records_delta2", 0),
+            **launches}
+
+
 def main() -> None:
     import torch
 
@@ -1903,6 +2136,10 @@ def main() -> None:
     xhe_launches = xh_encode_phases(dev, units, native, kernels)
     for k in kernels:
         k["launches"] = k.get("launches", 0) + xhe_launches.get(k["name"], 0)
+    # ---- 13-14. XH one-shot decompress ------------------------------------
+    xho_launches = xh_oneshot_phases(dev, data, native, kernels)
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + xho_launches.get(k["name"], 0)
     require(len(kernels) == 12, f"{len(kernels)} kernels in the line, not 12")
 
     print(json.dumps({"kernels": kernels}))

@@ -114,13 +114,14 @@ def main() -> None:
                  if first else torch.arange(N, device=dev)).to(torch.int32)
         rec_pos = torch.empty((N, U), dtype=torch.int32, device=dev)
         rec_val = torch.empty_like(rec_pos)
-        p_final, err, rounds = (torch.empty(N, dtype=torch.int32, device=dev)
-                                for _ in range(3))
+        p_final, err, span, rounds = (
+            torch.empty(N, dtype=torch.int32, device=dev) for _ in range(4))
+        hist_len = torch.zeros(N, dtype=torch.int32, device=dev)
         scratch = torch.empty((N, xh_parse.THREADS, hyp - 1, xh_parse.REC),
                               dtype=torch.int32, device=dev)
         _build.launch("xh_parse", list(args) + [
-            order, rec_pos, rec_val, p_final, err, rounds, scratch],
-            [N, Pb, U], lib=libs[name])
+            hist_len, order, rec_pos, rec_val, p_final, err, span, rounds,
+            scratch], [N, Pb, U], lib=libs[name])
         return (rec_pos, rec_val, p_final, err), rounds
 
     for case, args in cases.items():

@@ -11,12 +11,15 @@ The Xpress Huffman and plain Xpress streams come from the repo's native
 C encoder, which ``chip_smoke.Native`` builds with the host C compiler.
 """
 
+import hashlib
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import tpucomp_torch
-from chip_smoke import Native
+from chip_smoke import XH_VECTOR, XH_VECTOR_INPUT_SHA256, Native
 from tpucomp_torch.codecs import lznt1 as lz
 from tpucomp_torch.codecs import xpress as xp
 from tpucomp_torch.codecs import xpress_huff as xh
@@ -565,10 +568,10 @@ def _resolve_rows(N, U, dev):
             for p in zip(*cases)]
 
 
-@pytest.mark.parametrize("U", [512, 4096, 65536])
+@pytest.mark.parametrize("U", [512, 4096, 65536, 131072])
 @pytest.mark.parametrize("name", list(CASES))
 def test_resolve_kernel_on_adversarial_segments(name, U, dev):
-    N = {512: 13, 4096: 3, 65536: 2}[U]
+    N = {512: 13, 4096: 3, 65536: 2, 131072: 2}[U]
     args = [torch.from_numpy(p).to(dev) for p in case_inputs(name, N, U)]
     before = resolve.resolve_near.launches
     got = resolve.resolve_near(*args)
@@ -994,3 +997,147 @@ def test_xh_encode_on_card_matches_cpu_and_round_trips(dev):
         assert not u or native.xh_decompress(s, len(u)) == u
     s = tpucomp_torch.compress("xpress_huff", data)
     assert s == tpucomp_torch.compress("xpress_huff", data, device="cpu")
+
+
+# ---- the one-shot XH decode: [history | block] rows of 131072 ---------------
+
+BLOCK = xh.BLOCK
+
+
+def _ten_blocks(native):
+    """Ten blocks less 1234 bytes of repeated text (about 9 KB a block)
+    by the native encoder: (data, stream, the blocks' starts).  The
+    encoder is block-local, so its stream is its blocks' streams end to
+    end; the Kraft scan finds 31 candidates, the ten starts among them."""
+    data = (_xh_units()[0] * 140)[:10 * BLOCK - 1234]
+    blocks = [native.xh_compress(data[k:k + BLOCK])
+              for k in range(0, len(data), BLOCK)]
+    stream = b"".join(blocks)
+    assert stream == native.xh_compress(data)
+    return data, stream, np.cumsum([0] + [len(b) for b in blocks[:-1]])
+
+
+def _vector():
+    """The committed cross-block stream (the oracle's, ``cross_block=True``)
+    and its input, checked against the sha256 its CPU test pins, and its
+    blocks' starts (its three Kraft candidates)."""
+    from benchmarks.corpus import _synthetic
+
+    data = _synthetic(3 * BLOCK)
+    assert hashlib.sha256(data).hexdigest() == XH_VECTOR_INPUT_SHA256
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), XH_VECTOR), "rb") as f:
+        stream = f.read()
+    starts = xh._kraft_candidates(np.frombuffer(stream, np.uint8))
+    assert len(starts) == 3
+    return data, stream, starts
+
+
+def _oneshot_rows(native):
+    """Rows of the history decode, each a slice from a block start to up
+    to ``max_payload(65536)`` bytes on (the blocks after it follow):
+    (stream slice, out_len, hist_len).  The ten-block stream's first
+    three blocks and the vector's three at a full history reach, the
+    vector's later blocks also with none (their matches reach before the
+    block: err), and 64 KiB of random bytes (tier 3) stopped at out_len
+    6000, mid-body."""
+    MP = xh.max_payload(BLOCK)
+    rows = []
+    for _, s, starts in (_ten_blocks(native), _vector()):
+        for o in starts[:3].tolist():
+            rows.append((s[o:o + MP], BLOCK, BLOCK))
+            if o:
+                rows.append((s[o:o + MP], BLOCK, 0))
+    r = np.random.default_rng(30)
+    noise = native.xh_compress(r.integers(0, 256, BLOCK, dtype=np.uint8)
+                               .tobytes())
+    rows.append((noise, 6000, BLOCK))
+    return rows
+
+
+def test_xh_parse_kernel_with_history_and_span(dev):
+    """The parse with hist_len and the span against xh_parse_ref: every
+    plane equal, the span on the rows without err."""
+    rows = _oneshot_rows(Native())
+    batch = xh.pack_units([r[0] for r in rows], [r[1] for r in rows], BLOCK,
+                          dev)
+    args = xh.parse_inputs(*batch)
+    hl = torch.tensor([r[2] for r in rows], dtype=torch.int32)
+    cpu = [a.cpu() for a in args]
+    want = xh_parse.xh_parse_ref(*cpu, BLOCK, hl, True)
+    before = xh_parse.xh_parse.launches
+    got = xh_parse.xh_parse(*args, BLOCK, hist_len=hl.to(dev), want_span=True)
+    assert xh_parse.xh_parse.launches == before + 1
+    _assert_equal(got[:4], want[:4])
+    ok = (want[3] == 0) & (want[2] >= batch[2].cpu())
+    assert torch.equal(got[4].cpu()[ok], want[4][ok])
+    assert int(ok.sum()) >= 7 and int((~ok).sum()) >= 1
+    assert int(batch[3][-1]) == 3
+    print(f"xh_parse rounds on the one-shot rows: "
+          f"{xh_parse.xh_parse.rounds.cpu().tolist()}")
+
+
+def _history_states(dev):
+    """The near walk's inputs on the [history | block] rows of every block
+    of the ten-block stream and of the vector, each with the block before
+    it as history (as a fixpoint pass decodes them), on the card."""
+    native = Native()
+    rows = []
+    for data, s, starts in (_ten_blocks(native), _vector()):
+        for k, o in enumerate(starts.tolist()):
+            before = data[max(0, (k - 1) * BLOCK):k * BLOCK]
+            rows.append((s[o:o + xh.max_payload(BLOCK)],
+                         min(BLOCK, len(data) - k * BLOCK), before))
+    batch = xh.pack_units([r[0] for r in rows], [r[1] for r in rows], BLOCK,
+                          dev)
+    hist = np.zeros((len(rows), BLOCK), np.uint8)
+    for i, (_, _, h) in enumerate(rows):
+        hist[i, BLOCK - len(h):] = np.frombuffer(h, np.uint8)
+    hist = torch.from_numpy(hist).to(dev)
+    hl = torch.full((len(rows),), BLOCK, dtype=torch.int32, device=dev)
+    rec_pos, rec_val, _, err = xh.parse_batch(*batch, BLOCK, hl)
+    assert not bool(err.any())
+    vpack, tokpos, _ = fill.fill_records_delta2(rec_pos, rec_val, BLOCK,
+                                                BLOCK)
+    is_copy, disp, litv = xh.near_inputs(vpack, tokpos)
+    z = torch.zeros_like(hist, dtype=torch.int32)
+    planes = (torch.cat([z.bool(), is_copy], 1), torch.cat([z, disp], 1),
+              torch.cat([hist.int(), litv], 1))
+    return planes, rows
+
+
+def test_wide_kernels_on_history_rows(dev):
+    """The near walk, the 4 KiB level and the full-row level at [N,
+    131072] on real [history | block] rows against their plain versions;
+    the rows are swept, and the bytes past the history are the input."""
+    planes, rows = _history_states(dev)
+    before = resolve.resolve_near.launches
+    near = resolve.resolve_near(*planes)
+    assert resolve.resolve_near.launches == before + 1
+    _assert_equal([near], [resolve.resolve_near_ref(*planes)])
+    seg_args = (near, common.SEG_LEVEL, common.SEG_LEVEL_CAP, False)
+    seg = gather.far_level(*seg_args)
+    _assert_equal([seg], [gather.far_level_ref(*seg_args)])
+    assert not _hold_far_row(seg).any()
+    out = gather.far_row(seg).to(torch.uint8).cpu().numpy()
+    ten = _ten_blocks(Native())[0]
+    for k in range(3):
+        assert out[k, BLOCK:].tobytes() == ten[k * BLOCK:(k + 1) * BLOCK]
+
+
+def test_xh_oneshot_decode_on_card(dev):
+    """decompress of the ten-block stream (the speculative path: three
+    batch decodes) equal to its CPU run and the input, and of the vector
+    (fixpoint passes with the true history) equal to its input; a stream
+    cut short raises DataError."""
+    native = Native()
+    data, s, _ = _ten_blocks(native)
+    got = tpucomp_torch.decompress("xpress_huff", s, len(data))
+    assert got == data and xh.decompress.stats["batch_decodes"] == 3
+    assert tpucomp_torch.decompress("xpress_huff", s, len(data),
+                                    device="cpu") == data
+    data, s, _ = _vector()
+    assert tpucomp_torch.decompress("xpress_huff", s, len(data)) == data
+    assert xh.decompress.stats["batch_decodes"] >= 3
+    with pytest.raises(tpucomp_torch.DataError):
+        tpucomp_torch.decompress("xpress_huff", s[:len(s) // 2], len(data))

@@ -27,7 +27,9 @@ from tpucomp_torch.kernels import common, gather
 FAR_TAG = common.FAR_TAG
 CHUNK = 1024
 CHUNK_ROUNDS = (CHUNK - 1).bit_length() + 1
-WIDTHS = (65536, 65024, 4610)  # whole chunks; a partial last one; U % 4
+# whole chunks (131072: the one-shot XH decode's [history | block] row);
+# a partial last one; U % 4
+WIDTHS = (131072, 65536, 65024, 4610)
 
 
 def states(x):
@@ -147,11 +149,13 @@ def _cross_chunks(r, U):
 def _dead(r, U):
     """Dead tags (sources at or past U, to 0x1FFFF) and the positions that
     chase them; position 0 a tag to itself (a source clamped to 0), and
-    tags to it; a source with bit 17 set (live, to 5)."""
+    tags to it; a source with bit 17 set (live, to 5).  At U = 2^17 no
+    source of 17 bits lies past the row: the dead tags are FAR_TAG | U,
+    whose state is a tag to position 0."""
     x = _bytes(r, 2, U)
     j = np.arange(U)
     dead = r.random((2, U)) < 0.05
-    x[dead] = FAR_TAG | r.integers(U, 0x20000, dead.sum())
+    x[dead] = FAR_TAG | r.integers(U, max(U + 1, 0x20000), dead.sum())
     chase = r.random((2, U)) < 0.4
     x[chase] = FAR_TAG | np.maximum(
         np.broadcast_to(j, (2, U))[chase] - r.integers(1, 9000, chase.sum()),

@@ -150,15 +150,25 @@ def test_decompress_batch_matches_tpucomp():
 @pytest.mark.parametrize("fmt", ["xpress", "xpress_huff",
                                  tpucomp_torch.Format.LZX])
 def test_unported_formats_raise(fmt):
-    """Every call of an unported format raises; of XPRESS_HUFF only the
-    one-shot ``decompress`` does (its encode and batched decode are
-    ported); of XPRESS only ``compress`` of more than 64 KiB does
-    (tpucomp's single-stream encoder)."""
+    """Every call of an unported format raises; of XPRESS only ``compress``
+    of more than 64 KiB does (tpucomp's single-stream encoder); of
+    XPRESS_HUFF none does: every call is ported, and its one-shot
+    ``decompress`` of a stream shorter than a table raises ``DataError``,
+    as tpucomp's does, and decodes a real stream."""
     calls = [lambda: tpucomp_torch.decompress(fmt, b"ab", 2, device="cpu")]
+    if fmt == "xpress_huff":
+        with pytest.raises(tpucomp.DataError):
+            tpucomp.decompress(fmt, b"ab", 2, backend="tpu")
+        with pytest.raises(tpucomp_torch.DataError, match="stream ended"):
+            calls[0]()
+        s = _native.xh_compress(b"hello hello hello")
+        assert tpucomp_torch.decompress(fmt, s, 17, device="cpu") \
+            == b"hello hello hello"
+        return
     if fmt == "xpress":
         calls = [lambda: tpucomp_torch.compress(fmt, bytes(65537),
                                                 device="cpu")]
-    elif fmt != "xpress_huff":
+    else:
         calls += [lambda: tpucomp_torch.compress(fmt, b"ab", device="cpu"),
                   lambda: tpucomp_torch.compress_batch(fmt, [b"ab"],
                                                        device="cpu"),

@@ -25,7 +25,9 @@ from tpucomp_torch.kernels import common, resolve
 
 SEG = resolve.SEG
 FAR_TAG = common.FAR_TAG
-WIDTHS = {512: 8, 4096: 2, 65536: 1}  # U: rows (8 to 128 segments)
+# U: rows (8 to 256 segments); 131072 is the one-shot XH decode's
+# [history | block] row
+WIDTHS = {512: 8, 4096: 2, 65536: 1, 131072: 1}
 
 
 def codes(is_copy, disp, litv):

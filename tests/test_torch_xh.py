@@ -138,7 +138,9 @@ def test_errors_match_tpucomp():
 
 
 def test_one_shot_decompress_not_ported():
+    """The one-shot ``decompress`` is ported now: a one-block stream
+    decodes as tpucomp decodes it, with one batch decode."""
     s = _native.xh_compress(b"hello hello hello")
-    with pytest.raises(tpucomp_torch.UnsupportedFormatError,
-                       match="not ported"):
-        tpucomp_torch.decompress("xpress_huff", s, 17, device="cpu")
+    got = tpucomp_torch.decompress("xpress_huff", s, 17, device="cpu")
+    assert got == t_xh.decompress(s, 17) == b"hello hello hello"
+    assert xh.decompress.stats["batch_decodes"] == 1

@@ -6,8 +6,8 @@ by hand for Hopper (``kernels/csrc``, built by nvcc at first use into
 ``tpucomp_torch/_build/``).  It never imports JAX.
 
 Ported so far: LZNT1 encode and decode, plain Xpress unit encode and
-decode (one-shot up to 64 KiB), and Xpress Huffman encode (one-shot and
-batched) and batched decode.
+decode (one-shot up to 64 KiB), and Xpress Huffman encode and decode
+(one-shot, multi-block streams included, and batched).
 
     import tpucomp_torch
     stream = tpucomp_torch.compress("lznt1", data)              # on "cuda"
@@ -17,6 +17,7 @@ batched) and batched decode.
     units = tpucomp_torch.decompress_batch("lznt1", unit_streams)
     units = tpucomp_torch.decompress_batch("xpress_huff", unit_streams,
                                            out_lens)          # 64 KiB units
+    data = tpucomp_torch.decompress("xpress_huff", stream, out_len)
     streams = tpucomp_torch.compress_batch("xpress", units)    # <= 64 KiB each
     units = tpucomp_torch.decompress_batch("xpress", streams, out_lens)
     stream = tpucomp_torch.compress("xpress_huff", data)       # 64 KiB blocks

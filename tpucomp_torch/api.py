@@ -5,9 +5,9 @@ Counterparts of ``tpucomp.compress`` / ``decompress`` (``backend="tpu"``),
 Every call that computes takes a ``device``; the default is ``"cuda"``,
 and asking for CUDA where it is not available raises.  Ported so far:
 LZNT1 and plain Xpress encode and decode (one-shot and batched; Xpress
-one-shot up to 64 KiB), Xpress Huffman encode (one-shot and batched) and
-its batched decode; any other call (the one-shot Xpress Huffman decode)
-raises :class:`UnsupportedFormatError`.
+one-shot up to 64 KiB), and Xpress Huffman encode and decode (one-shot,
+multi-block streams included, and batched); any other format raises
+:class:`UnsupportedFormatError`.
 """
 
 from __future__ import annotations
@@ -23,9 +23,8 @@ from .formats import Format
 def _not_ported(fmt: Format, call: str):
     return UnsupportedFormatError(
         f"{call} of format {fmt.name} is not ported to tpucomp_torch yet "
-        "(LZNT1 and XPRESS compress, compress_batch, decompress and "
-        "decompress_batch, and XPRESS_HUFF compress, compress_batch and "
-        "decompress_batch are)")
+        "(LZNT1, XPRESS and XPRESS_HUFF compress, compress_batch, "
+        "decompress and decompress_batch are)")
 
 
 def compress(fmt, data: bytes, *, device="cuda") -> bytes:
@@ -89,6 +88,9 @@ def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,
     LZNT1 is self-terminating; ``out_len`` truncates the result, and a
     stream shorter than ``out_len`` raises :class:`DataError`.  XPRESS
     needs ``out_len`` (at most 65536; :class:`ArgError` without it).
+    XPRESS_HUFF needs ``out_len`` too (:class:`ArgError` without it); the
+    stream may hold any number of 64 KiB blocks, and its matches may
+    reach back across them.
     """
     if data is None:
         raise ArgError("data must be bytes-like")
@@ -97,6 +99,8 @@ def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,
         return lznt1.decompress(data, out_len, device=device)
     if fmt == Format.XPRESS:
         return xpress.decompress(data, out_len, device=device)
+    if fmt == Format.XPRESS_HUFF:
+        return xpress_huff.decompress(data, out_len, device=device)
     raise _not_ported(fmt, "decompress")
 
 

@@ -1,10 +1,8 @@
-"""Xpress Huffman batched decode and encode, block-parallel, on PyTorch
-tensors.
+"""Xpress Huffman decode and encode, block-parallel, on PyTorch tensors.
 
-Counterpart of ``tpucomp/codecs/xpress_huff.py`` but its one-shot
-multi-block decode.  One row of a batch is one single-block unit stream:
-a 256-byte table of 512 code lengths, then the body.  The decode
-pipeline (the path ``decompress_units`` takes):
+Counterpart of ``tpucomp/codecs/xpress_huff.py``.  One row of a batch is
+one single-block stream: a 256-byte table of 512 code lengths, then the
+body.  The decode pipeline (the path ``decompress_units`` takes):
 
   tables (plain torch)  -> canonical per-level limits and the rank->symbol
                            table of every row (kernels.huffman)
@@ -43,11 +41,39 @@ whose streams equal tpucomp's byte for byte at the same
                            form: bit offsets by cumsums, word planes and
                            escape bytes by direct scatters
 
-The one-shot multi-block decode (tpucomp's ``decompress``) is not ported
-yet.
+The one-shot multi-block decode (:func:`decompress`, tpucomp's
+``decompress``).  A multi-block stream is a row of blocks, each a table
+and a body, and a block's end is found only by decoding it ([MS-XCA]
+§2.1); a match may reach up to 64 KiB back into the blocks before it.
+Each batch decode (:func:`history_decode`) runs the pipeline above with
+two additions, on slices of the stream that start at a block and run up
+to ``max_payload(65536)`` bytes on: the parse also checks each offset
+against the row's history reach and returns each block's byte span, and
+the near walk and far levels run over ``[64 KiB history | block]`` rows
+of 131072 bytes, the history's columns literals.  Past 64 KiB the call
+first tries the speculative path, as tpucomp:
+
+  Kraft scan (host)     -> every offset whose next 256 bytes are a
+                           complete canonical table (at most 512, else
+                           the sequential walk below)
+  speculative batch     -> every candidate decoded as a full block over an
+                           all-zero history: its span and err
+  chain walk (host)     -> from offset 0, block after block by span; a
+                           link that is no clean candidate (the partial
+                           last block) costs one batch decode of its own
+  fixpoint passes       -> every block of the chain re-decoded with the
+                           block before it as history, until no output
+                           changes (one pass without cross-block matches)
+
+and otherwise walks the blocks one batch decode each, each with the last
+64 KiB of output as history.  The substep tier of a batch is the largest
+of its slices' tiers, as tpucomp's: the leftover check, which sets err,
+depends on it.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -80,6 +106,8 @@ from ..util import resolve_device, row_streams, unit_rows
 BLOCK = 65536
 TABLE = 256  # bytes of code lengths before the body
 MIN_MATCH = 3
+HIST = BLOCK  # the history a block's matches may reach: the 64 KiB before it
+MAX_CANDS = 512  # Kraft candidates past which the speculative path gives up
 
 # min code length guaranteed by each substep tier (tpucomp's _BUCKET_MCL)
 _BUCKET_MCL = {3: 8, 5: 4, 9: 2, 17: 1}
@@ -141,9 +169,11 @@ def batch_from_numpy(payload: np.ndarray, plen: np.ndarray,
 
 def decode_batch(payload: torch.Tensor, plen: torch.Tensor,
                  out_len: torch.Tensor, ss: torch.Tensor, U: int,
-                 fast_resolve: bool = False):
-    """Decode a batch of single-block XH unit streams (the mode path of
-    tpucomp's ``_decode_impl``).
+                 fast_resolve: bool = False, *, hist=None, hist_len=None,
+                 want_span: bool = False):
+    """Decode a batch of single-block XH streams (the mode path of
+    tpucomp's ``_decode_impl``; with ``hist`` or ``want_span``, its XLA
+    path ``make_decoder(..., want_span=True, with_history=True)``).
 
     Args (all on one device, e.g. from :func:`batch_from_numpy`):
       payload: uint8 [N, P], each stream, zero-padded.
@@ -153,15 +183,26 @@ def decode_batch(payload: torch.Tensor, plen: torch.Tensor,
       U:       output width of a row, a multiple of 512 up to 65536.
       fast_resolve: run the archive value-chase probes before the last far
                level (for ``xh_compress_resolved`` streams; right for any).
+      hist:    uint8 [N, HU] or None: the bytes before each block,
+               right-aligned (a row's last column is the byte just before
+               the block); HU + U a multiple of 512 up to 131072.  The
+               copies resolve over ``[hist | block]`` rows.
+      hist_len: int32 [N] or None (0): how many bytes before the block an
+               offset may reach; a longer one sets err.
+      want_span: also return each row's byte span.
 
     Returns:
       out: uint8 [N, U] decoded bytes (tpucomp returns int32; the values
            are equal), zero past out_len
       err: bool [N] malformed-stream flag; the bytes of a row with err
            set are meaningless
+      span: int32 [N], with ``want_span``: the body bytes the block takes
+           (exact where err is clear)
     """
-    return _records_to_output(*parse_batch(payload, plen, out_len, ss, U),
-                              out_len, U, fast_resolve)
+    parsed = parse_batch(payload, plen, out_len, ss, U, hist_len, want_span)
+    out, err = _records_to_output(*parsed[:4], out_len, U, fast_resolve,
+                                  hist)
+    return (out, err, parsed[4]) if want_span else (out, err)
 
 
 def parse_inputs(payload, plen, out_len, ss):
@@ -174,24 +215,30 @@ def parse_inputs(payload, plen, out_len, ss):
             lim15, rbf, rank_to_symbol_table(lengths))
 
 
-def parse_batch(payload, plen, out_len, ss, U: int):
+def parse_batch(payload, plen, out_len, ss, U: int, hist_len=None,
+                want_span=False):
     """The head of :func:`decode_batch`: the tables, then the parse.
-    Returns :func:`xh_parse`'s (rec_pos, rec_val, p_final, err)."""
-    return xh_parse(*parse_inputs(payload, plen, out_len, ss), U)
+    Returns :func:`xh_parse`'s (rec_pos, rec_val, p_final, err[, span])."""
+    return xh_parse(*parse_inputs(payload, plen, out_len, ss), U,
+                    hist_len=hist_len, want_span=want_span)
 
 
 def _records_to_output(rec_pos, rec_val, p_final, errk, out_len, U,
-                       fast_resolve=False):
+                       fast_resolve=False, hist=None):
     """Decode tail: token records -> output bytes (tpucomp's
-    ``_records_to_output``, mode path)."""
+    ``_records_to_output``, mode path; with ``hist``, its history path)."""
     # tpucomp's keep bound (8 * body / min code length + 8) never binds:
     # every record is one decoded symbol of at least that many bits.  Here
     # a row has at most U record slots, so keep = U cannot overflow either.
     vpack, tokpos, ovf = fill_records_delta2(rec_pos, rec_val, U, keep=U)
     err = (errk != 0) | (ovf != 0) | (p_final < out_len)
-    is_copy, disp, litv = near_inputs(vpack, tokpos)
-    out = far_rounds(resolve_near(is_copy, disp, litv), U, SEG,
-                     fast=fast_resolve)
+    planes = near_inputs(vpack, tokpos)
+    HU = 0
+    if hist is not None:
+        HU = hist.shape[1]
+        planes = history_planes(*planes, hist)
+    out = far_rounds(resolve_near(*planes), HU + U, SEG,
+                     fast=fast_resolve)[:, HU:]
     j = torch.arange(U, dtype=torch.int32, device=out.device)
     out = torch.where(j < out_len[:, None], out, 0).to(torch.uint8)
     return out, err
@@ -212,6 +259,16 @@ def near_inputs(vpack: torch.Tensor, tokpos: torch.Tensor):
     disp = torch.where(is_copy & (rel >= dispc), rel - torch.fmod(rel, dispc),
                        disp)
     return is_copy, disp, torch.where(is_copy, 0, vpack & 0x1FF)
+
+
+def history_planes(is_copy, disp, litv, hist):
+    """The near walk's planes of ``[hist | block]`` rows: the history's
+    columns are literals (its bytes), so a copy that reaches before the
+    block takes the history's byte, as over tpucomp's concatenated
+    rows."""
+    pad = torch.zeros(hist.shape, dtype=torch.int32, device=hist.device)
+    return (torch.cat([pad.bool(), is_copy], 1), torch.cat([pad, disp], 1),
+            torch.cat([hist.to(torch.int32), litv], 1))
 
 
 def pack_units(streams, out_lens, unit_size: int, device):
@@ -268,6 +325,226 @@ def decompress_units(streams, out_lens, unit_size=BLOCK, fast_resolve=False,
         raise DataError("XpressHuff: malformed unit stream")
     out = out.cpu().numpy()
     return [out[i, :o].tobytes() for i, o in enumerate(out_lens)]
+
+
+# --------------------------------------------------------------------------
+# One-shot multi-block decode
+# --------------------------------------------------------------------------
+
+
+def _kraft_candidates(arr: np.ndarray, max_cands: int = MAX_CANDS):
+    """Candidate block starts: the offsets whose next 256 bytes form a
+    complete canonical table (the Kraft sum of the 512 four-bit lengths
+    is 2^15), by one windowed cumsum over the stream.  Every block start
+    of a conforming encoder qualifies but a single-symbol table's (the
+    chain walk decodes that one on its own); body bytes seldom do.
+    Returns None past ``max_cands`` candidates (the caller then walks the
+    blocks one by one)."""
+    n = len(arr)
+    if n < TABLE:
+        return np.empty(0, np.int64)
+    lo = (arr & 0xF).astype(np.int64)
+    hi = (arr >> 4).astype(np.int64)
+    w = np.where(lo > 0, 1 << (15 - lo), 0) + np.where(
+        hi > 0, 1 << (15 - hi), 0)
+    c = np.concatenate([[0], np.cumsum(w)])
+    offs = np.nonzero(c[TABLE:] - c[:-TABLE] == 1 << 15)[0]
+    if len(offs) > max_cands:
+        return None
+    return offs
+
+
+def batch_width(n: int, offs) -> int:
+    """tpucomp's slice width of a speculative or fixpoint batch of the
+    blocks at ``offs`` of an ``n``-byte stream: the longest slice's bytes
+    in 16 KiB steps (at least 1024), 16 more, at most
+    ``max_payload(65536)``."""
+    MP = max_payload(BLOCK)
+    longest = max(min(MP, n - o) for o in offs)
+    return min(MP, max(1024, -(-longest // 16384) * 16384) + 16)
+
+
+def walk_width(n: int, off: int) -> int:
+    """tpucomp's slice width of the sequential walk's block at ``off``:
+    its body's bytes left in 16 KiB steps (at least 1024), the table and
+    16 more, at most ``max_payload(65536)``."""
+    MP = max_payload(BLOCK)
+    avail = min(MP, n - off)
+    return min(MP, TABLE + max(1024, -(-(avail - TABLE) // 16384) * 16384)
+               + 16)
+
+
+def _clock(stats: dict, step: str, t0: float) -> float:
+    """Add the host seconds since ``t0`` to ``stats["seconds"][step]``;
+    returns the time now."""
+    t = time.perf_counter()
+    sec = stats["seconds"]
+    sec[step] = sec.get(step, 0.0) + t - t0
+    return t
+
+
+def history_batch(data: bytes, offs, olens, hists, hlens, P: int, dev):
+    """The batch of :func:`history_decode` on ``dev``: (payload, plen,
+    out_len, ss, hist, hist_len), the arguments of :func:`decode_batch`
+    at U = 65536 and its ``hist`` and ``hist_len``."""
+    slices = [data[o:o + P] for o in offs]
+    ss = max(_substeps_for(_min_code_len([s])) for s in slices)
+    N = len(offs)
+    payload = np.zeros((N, -(-P // 16) * 16), np.uint8)
+    plen = np.zeros(N, np.int32)
+    hist = np.zeros((N, HIST), np.uint8)
+    for i, s in enumerate(slices):
+        payload[i, :len(s)] = np.frombuffer(s, np.uint8)
+        plen[i] = len(s)
+        if hists[i]:
+            h = np.frombuffer(hists[i], np.uint8)
+            hist[i, HIST - len(h):] = h
+    return [torch.from_numpy(a).to(dev) for a in (
+        payload, plen, np.asarray(olens, np.int32), np.full(N, ss, np.int32),
+        hist, np.asarray(hlens, np.int32))]
+
+
+def history_decode(data: bytes, offs, olens, hists, hlens, P: int, dev,
+                   stats: dict):
+    """One batch decode: the blocks that start at ``offs`` in ``data``,
+    each sliced to at most ``P`` bytes, decoding ``olens[i]`` bytes over
+    the history ``hists[i]`` (bytes, right-aligned before the block; None
+    for zeros) with reach ``hlens[i]``, all rows at the largest substep
+    tier of the slices.  Counts itself in ``stats``.  Returns (outs uint8
+    [n, 65536], errs bool [n], spans int [n]) on the host."""
+    t = time.perf_counter()
+    batch = history_batch(data, offs, olens, hists, hlens, P, dev)
+    t = _clock(stats, "slice and upload", t)
+    out, err, span = decode_batch(*batch[:4], BLOCK, hist=batch[4],
+                                  hist_len=batch[5], want_span=True)
+    err, span = err.cpu().numpy(), span.cpu().numpy()
+    t = _clock(stats, "batch decode", t)
+    out = out.cpu().numpy()
+    _clock(stats, "copy back", t)
+    stats["batch_decodes"] += 1
+    return out, err, span
+
+
+def _malformed() -> DataError:
+    return DataError("XpressHuff: malformed stream (or a match overrunning "
+                     "a 64 KiB block boundary)")
+
+
+def _decompress_speculative(data: bytes, out_len: int, dev, stats: dict):
+    """The multi-block decode in a few batch decodes instead of one a
+    block (tpucomp's ``_decompress_speculative``, step for step): the
+    Kraft scan, one speculative batch of every candidate over an all-zero
+    history, the chain walk by spans, then fixpoint passes with the real
+    history until the output is stable (depth-k cross-block chains take
+    k + 1 passes).  Returns the output, or None when the scan gives up
+    or finds nothing (the caller walks the blocks instead)."""
+    t = time.perf_counter()
+    arr = np.frombuffer(data, np.uint8)
+    cands = _kraft_candidates(arr)
+    t = _clock(stats, "Kraft scan", t)
+    if cands is None:
+        return None
+    cands = cands[cands + TABLE <= len(arr)]
+    if len(cands) == 0:
+        return None
+
+    def batch(offs, olens, hists, hlens):
+        return history_decode(data, offs, olens, hists, hlens,
+                              batch_width(len(data), offs), dev, stats)
+
+    # the speculative batch: every candidate, a full block, zero history
+    offs = [int(o) for o in cands]
+    outs, errs, spans = batch(offs, [BLOCK] * len(offs), [None] * len(offs),
+                              [HIST] * len(offs))
+    spec = {o: (outs[i].tobytes(), int(spans[i]))
+            for i, o in enumerate(offs) if not errs[i]}
+    del outs
+
+    # the chain walk: the true block starts, by span
+    t = time.perf_counter()
+    chain = []  # (offset, the block's decoded length)
+    off, produced = 0, 0
+    while produced < out_len:
+        if off + TABLE > len(data):
+            raise DataError("XpressHuff: stream ended before out_len bytes")
+        block_out = min(BLOCK, out_len - produced)
+        if block_out != BLOCK or off not in spec:
+            # no candidate (a single-symbol table, the partial last block):
+            # one batch decode finds this link
+            o2, e2, s2 = batch([off], [block_out], [None], [HIST])
+            if e2[0]:
+                raise _malformed()
+            spec[off] = (o2[0].tobytes(), int(s2[0]))
+        chain.append((off, block_out))
+        off += TABLE + spec[off][1]
+        produced += block_out
+    t = _clock(stats, "chain walk", t)
+
+    # the fixpoint: each block over the output of the one before it
+    cur = [spec[o][0][:bo] for o, bo in chain]
+    offs = [o for o, _ in chain]
+    olens = [bo for _, bo in chain]
+    for _ in range(len(chain)):
+        hists = [None] + [c[-HIST:] for c in cur[:-1]]
+        hlens = [0] + [len(h) for h in hists[1:]]
+        o3, e3, _ = batch(offs, olens, hists, hlens)
+        if e3.any():
+            raise _malformed()
+        nxt = [o3[k, :olens[k]].tobytes() for k in range(len(chain))]
+        stable = nxt == cur
+        cur = nxt
+        if stable:
+            break
+    _clock(stats, "fixpoint", t)
+    return b"".join(cur)
+
+
+def decompress(data: bytes, out_len=None, *, device="cuda") -> bytes:
+    """One-shot decode of a (multi-block) XH stream to ``out_len`` bytes,
+    tpucomp's ``decompress``: past 64 KiB the speculative path, else (or
+    when it gives up) one batch decode a block, each with the last 64 KiB
+    of output as its history.  Matches may reach back across blocks;
+    one whose output runs past its block's 64 KiB raises
+    :class:`DataError`, as any malformed stream does.  ``out_len`` is
+    required (:class:`ArgError`).
+
+    ``decompress.stats`` holds the last call's count of batch decodes and
+    its host seconds a step."""
+    data = bytes(data)
+    if out_len is None:
+        raise ArgError("XPRESS_HUFF decompression requires out_len")
+    dev = resolve_device(device)
+    stats = decompress.stats = {"batch_decodes": 0, "seconds": {}}
+    if out_len == 0:
+        return b""
+    if out_len > BLOCK:
+        got = _decompress_speculative(data, out_len, dev, stats)
+        if got is not None:
+            return got
+    t = time.perf_counter()
+    parts = []
+    off, produced = 0, 0
+    tail = b""  # the last <= 64 KiB of output: the next block's history
+    while produced < out_len:
+        if off + TABLE > len(data):
+            raise DataError("XpressHuff: stream ended before out_len bytes")
+        block_out = min(BLOCK, out_len - produced)
+        out, err, span = history_decode(data, [off], [block_out], [tail],
+                                        [len(tail)],
+                                        walk_width(len(data), off), dev,
+                                        stats)
+        if err[0]:
+            raise _malformed()
+        block = out[0, :block_out].tobytes()
+        parts.append(block)
+        tail = (tail + block)[-HIST:]
+        off += TABLE + int(span[0])
+        produced += block_out
+    _clock(stats, "sequential walk", t)
+    return b"".join(parts)
+
+
+decompress.stats = {"batch_decodes": 0, "seconds": {}}
 
 
 # --------------------------------------------------------------------------

@@ -13,8 +13,12 @@ import torch
 
 FAR_TAG = 1 << 24  # out-value tag: "pointer to earlier output position"
 SENT_KEY = 1 << 28  # empty-record key (the parse's SENT)
-# widest row: absolute sources must fit the far levels' 17-bit field
+# widest row of a block's parse: a block decodes to at most 64 KiB
 MAX_ROW = 1 << 16
+# widest row of the decode resolve (the near walk and the far levels): a
+# one-shot XH row, [64 KiB of history | the 64 KiB block]; an absolute
+# source must fit the far levels' 17-bit field
+MAX_RESOLVE_ROW = 1 << 17
 
 # tpucomp's _far_rounds levels (common.py:1472): one 4 KiB segment level,
 # capped at 6 rounds, before the full-row level
@@ -27,7 +31,7 @@ ARCHIVE_PROBE_BUDGET = 2
 def level_cap(S: int) -> int:
     """Round cap of a doubling level over S-wide segments when none is
     given: ``bitlen(S - 1) + 3`` (common.py:1674); 15 at 4096, 19 at
-    65536."""
+    65536, 20 at 131072."""
     return max(1, (S - 1).bit_length()) + 3
 
 
@@ -42,8 +46,9 @@ def far_rounds(out: torch.Tensor, U: int, min_hop: int,
       ``ARCHIVE_PROBE_BUDGET`` rounds (common.py:1511-1529).
     - Then the full-row level; the tags it leaves are zeroed.
 
-    LZNT1 (U = 4096) runs the full-row level alone.  Returns bytes, int32
-    [N, U].
+    LZNT1 (U = 4096) runs the full-row level alone; the one-shot XH
+    decode's ``[history | block]`` rows (U = 131072) run both levels.
+    Returns bytes, int32 [N, U].
     """
     # deferred: gather imports this module's constants
     from .gather import MAX_SEG, far_level, far_probe, far_row

@@ -5,9 +5,10 @@
 // the one-hot MXU gather of each round) together with the round loop of
 // common._far_level_segmented(out, U, S, cap) that drives it.  Two levels
 // of common._far_rounds run here: LZNT1's full row (U = S = 4096, cap 15,
-// leftover tags zeroed) and Xpress Huffman's 4 KiB segment level inside
-// 64 KiB rows (S = 4096, base = (segment % (U / S)) * S, cap 6, leftover
-// tags kept for the next level).
+// leftover tags zeroed) and the 4 KiB segment level inside the 64 KiB rows
+// of the batched decodes and the 131072-wide [history | block] rows of the
+// one-shot Xpress Huffman decode (S = 4096, base = (segment % (U / S)) *
+// S < 2^17, cap 6, leftover tags kept for the next level).
 //
 // The state is 18 bits per position, absolute: a byte, or (1 << 17) | src.
 // A round sets st[j] = st[src] & 0x3FFFF wherever a tag is live and base

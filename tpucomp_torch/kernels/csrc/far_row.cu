@@ -1,12 +1,15 @@
 // The full-row doubling level of copy resolution for rows wider than a
 // block's shared memory holds (Xpress Huffman's and plain Xpress's 64 KiB
-// blocks), one block a row, as an in-order sweep over the row's chunks.
+// blocks, and the one-shot Xpress Huffman decode's [64 KiB history |
+// block] rows of 131072), one block a row, as an in-order sweep over the
+// row's chunks.
 //
 // Replaces: tpucomp/kernels/gather_pallas.py gather18_pairs (_g18_kernel,
 // the pair-packed one-hot MXU gather) together with the round loop it
 // drives at common._far_rounds's last level, _far_level_segmented(out, U,
-// U): at most bitlen(U - 1) + 3 rounds (19 at U = 65536), then the tags
-// left are zeroed (common.py:1530-1531).  State and chase rule are those
+// U): at most bitlen(U - 1) + 3 rounds (19 at U = 65536, 20 at 131072),
+// then the tags left are zeroed (common.py:1530-1531).  U is at most
+// 2^17: every source fits the state's 17 bits.  State and chase rule are those
 // of far_level.cu with one segment per row (base 0): a position's state
 // is a byte, or (1 << 17) | src, live when bits 17 and up are exactly 1
 // and src < U; a round sets every live state to its source's state,
@@ -46,9 +49,9 @@
 // 3. Round loop, for the other rows (synthetic states only): the level's
 //    rounds, synchronous as tpucomp's are, every read of round r seeing
 //    the state after round r - 1, with the state in device memory (256
-//    KiB a row at U = 65536, past a block's shared memory) ping-ponging
-//    between the output and the wrapper's scratch tensor; a row stops
-//    when it has no live tag, which changes nothing.
+//    KiB a row at U = 65536, 512 KiB at 131072, past a block's shared
+//    memory) ping-ponging between the output and the wrapper's scratch
+//    tensor; a row stops when it has no live tag, which changes nothing.
 //
 // `looped[row]` is 1 when the row took the round loop, else 0.
 //
@@ -59,9 +62,12 @@
 //
 // Occupancy: NBUF x 4 KiB of shared memory and 256 threads a block, so 6
 // blocks an SM (1 KiB of each block's shared memory is the system's) and
-// 792 on 132 SMs: the 546 rows of a [546, 65536] batch all run at once.
+// 792 on 132 SMs: the 546 rows of a [546, 65536] batch all run at once,
+// as do the rows of a one-shot decode's batch at 131072 (its speculative
+// batch has a row a Kraft candidate, at most 512; its sequential walk
+// one row, on one SM, sweeping 128 chunks).
 //
-// What bounds it: the 512 KiB a row of 65536 moves.  On an NVIDIA H100
+// What bounds it: the 512 KiB a row of 65536 moves, 1 MiB at 131072.  On an NVIDIA H100
 // 80GB HBM3 at 700 W (scripts/far_row_variants.py) it takes 1.25-1.4
 // times as long as a copy of the same bytes, at every chunk size tried
 // with the same 32 KiB of staging (4096 x 2, 2048 x 4, 1024 x 8) and with

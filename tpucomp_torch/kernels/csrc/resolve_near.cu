@@ -4,8 +4,9 @@
 // Replaces: tpucomp/kernels/resolve_pallas.py resolve_copies (the Pallas
 // kernel built by _build_kernel), up to its call of _far_rounds: the
 // output is exactly the array tpucomp hands to the far rounds.  Each row
-// of U positions (a multiple of 512: 4096 for LZNT1, up to 65536 for
-// Xpress Huffman) is cut into U / 512 segments.  With base = the
+// of U positions (a multiple of 512: 4096 for LZNT1, 65536 for the
+// batched decodes' blocks, 131072 for the one-shot Xpress Huffman
+// decode's [history | block] rows) is cut into U / 512 segments.  With base = the
 // segment's start in its row, position j of a segment resolves so: a
 // literal to litv & 0x1FF; a copy with d = min(disp, 0x1FFFF) and
 // 1 <= d <= j to the resolved value of position j - d (far tags
@@ -34,6 +35,12 @@
 //    on neighbouring addresses.
 // Rows whose planes are not 16-byte aligned stage and store 4 (and 1)
 // bytes a lane instead.
+//
+// Widths: a segment's base, (g % row_segs) * 512, and the sources it
+// tags stay below U <= 2^17, the far levels' 17-bit field; segment g
+// starts at g * 512 of the whole batch, a 64-bit offset, so N * U may
+// pass 2^31 (the grid, N * U / 4096 blocks, takes any batch the card
+// holds).
 //
 // What bounds it: the 13 bytes a position moves (is_copy, disp and litv
 // read once, the output written once), 0.1305 ms for LZNT1's 8208 rows

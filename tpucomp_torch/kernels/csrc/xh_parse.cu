@@ -9,6 +9,16 @@
 // The order inside a step is tpucomp's exactly (xh_pallas.py:124-251);
 // run() below is that machine, over an explicit state.
 //
+// History and span (tpucomp's XLA scan with_history and want_span,
+// codecs/xpress_huff.py:170-390, which its one-shot multi-block decode
+// runs): an offset may reach hist_len[n] bytes before the block's start
+// (the checks are offset > p + hist_len), and span[n] = 2 * (2 + max(0,
+// ceil(bits / 16) - 1)) + raw, where bits are the code and offset bits
+// and raw the escape bytes the row consumed while active (before the
+// body's end and before out_len): where the next block of a multi-block
+// stream starts.  span is exact on rows without err; the one-shot decode
+// reads it on no other.
+//
 // Records: record k of a row goes to slot k of the [N, U] planes, its
 // output position in rec_pos and the literal or COPY_BIT | offset in
 // rec_val; the rest of the row holds SENT and 0.  Positions strictly
@@ -78,7 +88,10 @@
 //      first (sub-)segment that reaches out_len ends the row: p_final,
 //      err (its OR up to there, and k > U) and the record count come from
 //      it.  Later ones start at or past that count, so whatever they
-//      store lands in slots that the fill then sets to SENT and 0.
+//      store lands in slots that the fill then sets to SENT and 0.  Each
+//      (sub-)segment also counts its bits and escape bytes up to its own
+//      stop; the span sums them up to and including the one that ends
+//      the row.
 //
 // The wrapper launches tier-3 rows first: theirs is the longest path.
 //
@@ -216,17 +229,23 @@ struct Row {
   const uint16_t* sym;
   const uint16_t* fast;  // level | symbol << 4 by the top FAST_BITS bits
   int lim15[16];
-  int ss, olen, U;
+  int ss, olen, U, hl;  // hl: the history's reach before the block
   int32_t *rp, *rv;  // this row's record planes
 };
 
+// What the final pass counts for the span: code and offset bits, escape
+// bytes.
+struct Used {
+  int bits = 0, raw = 0;
+};
+
 // Body bytes [s0, s1) from state st at position p with k records made.
-// FINAL: absolute p, every guard and err, records stored; otherwise p
-// relative, no guard, no err, no store.  Stops early (FINAL) once p
-// reaches out_len, as the row does.
+// FINAL: absolute p, every guard and err, records stored, bits and escape
+// bytes counted into u; otherwise p relative, no guard, no err, no store,
+// no count.  Stops early (FINAL) once p reaches out_len, as the row does.
 template <bool FINAL>
 __device__ __forceinline__ void run(const Row& r, int s0, int s1, St& st,
-                                    int& p, int& k, int& err) {
+                                    int& p, int& k, int& err, Used& u) {
   const int olen = r.olen, U = r.U;
   auto record = [&](int pos, int val) {
     if (FINAL && k < U) {
@@ -248,6 +267,8 @@ __device__ __forceinline__ void run(const Row& r, int s0, int s1, St& st,
       if ((XH_DROP & 2) || s + 1 == s1) continue;
       b = r.bytes[++s];
     }
+    // every role but a word's high byte is an escape byte: the span counts it
+    if (FINAL && st.mode != M_W1) ++u.raw;
     if (st.mode == M_W1) {
       const int sh = 16 - st.bitcount;  // XLA: a negative shift gives 0
       if (sh >= 0) st.bitbuf |= (st.lowbyte | (b << 8)) << sh;
@@ -300,7 +321,7 @@ __device__ __forceinline__ void run(const Row& r, int s0, int s1, St& st,
     }
     if (esc_match) {
       const int end = wadd(p, esc_len);
-      if (FINAL && (st.off > p || end > olen)) err = 1;
+      if (FINAL && (st.off > wadd(p, r.hl) || end > olen)) err = 1;
       record(p, COPY_BIT | st.off);
       p = FINAL ? min(end, U) : end;
       st.pend = P_NONE;
@@ -318,9 +339,10 @@ __device__ __forceinline__ void run(const Row& r, int s0, int s1, St& st,
         const int offv = (int)((1u << obc) | raw);
         st.bitbuf <<= obc;
         st.bitcount -= obc;
+        if (FINAL) u.bits += obc;
         if (st.lh < 15) {
           const int mlen = st.lh + MIN_MATCH;
-          if (FINAL && (offv > p || p + mlen > olen)) err = 1;
+          if (FINAL && (offv > wadd(p, r.hl) || p + mlen > olen)) err = 1;
           record(p, COPY_BIT | offv);
           p = FINAL ? min(p + mlen, U) : wadd(p, mlen);
           st.pend = P_NONE;
@@ -346,6 +368,7 @@ __device__ __forceinline__ void run(const Row& r, int s0, int s1, St& st,
         if (e || peek15 < r.lim15[15]) {
           st.bitbuf <<= level;
           st.bitcount -= level;
+          if (FINAL) u.bits += level;
           if (sy < 256) {
             record(p, sy);
             p = wadd(p, 1);
@@ -378,7 +401,8 @@ __device__ __forceinline__ void speculate(const Row& r, int s0, int s1,
                                           int i) {
   St st = state_of(entry);
   int p = 0, k = 0, err = 0;
-  run<false>(r, s0, s1, st, p, k, err);
+  Used u;
+  run<false>(r, s0, s1, st, p, k, err, u);
   sl.put(i, live(st), p, k);
 }
 
@@ -427,9 +451,11 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
                 const int32_t* __restrict__ lim15_in,
                 const int32_t* __restrict__ rbf_in,
                 const int32_t* __restrict__ sym_by_rank,
+                const int32_t* __restrict__ hist_len,
                 const int32_t* __restrict__ order,
                 int32_t* __restrict__ rec_pos, int32_t* __restrict__ rec_val,
                 int32_t* __restrict__ p_final, int32_t* __restrict__ err_out,
+                int32_t* __restrict__ span_out,
                 int32_t* __restrict__ rounds_out,
                 int32_t* __restrict__ scratch, int Pb, int U) {
   extern __shared__ __align__(16) uint8_t sbody[];
@@ -438,7 +464,7 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
   __shared__ uint16_t fast[1 << FAST_BITS];
   __shared__ int32_t rbf[16];
   __shared__ int wa[NWARP], wb[NWARP];
-  __shared__ int s_stop, s_last, s_p, s_k, s_rounds;
+  __shared__ int s_stop, s_last, s_p, s_k, s_rounds, s_bits, s_raw;
   __shared__ int hsel[THREADS / HYP], c_p[THREADS / HYP], c_k[THREADS / HYP];
   const int row = order[blockIdx.x];
   const int tid = threadIdx.x;
@@ -460,6 +486,8 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
   if (tid == 0) {
     s_stop = THREADS;
     s_last = -1;
+    s_bits = 0;
+    s_raw = 0;
   }
   Row r;
   r.bytes = sbody;
@@ -471,6 +499,7 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
   r.ss = ss_in[row];
   r.olen = out_len[row];
   r.U = U;
+  r.hl = hist_len[row];
   r.rp = rec_pos + (size_t)row * U;
   r.rv = rec_val + (size_t)row * U;
   __syncthreads();
@@ -520,7 +549,8 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
       if (tid > 0) {
         St st = init_state();
         int p = 0, k = 0, err = 0;
-        run<false>(r, max(0, s0 - WARM), s0, st, p, k, err);
+        Used u;
+        run<false>(r, max(0, s0 - WARM), s0, st, p, k, err, u);
         entry = live(st);
       }
       speculate(r, s0, s1, entry, sl, tid);
@@ -547,12 +577,13 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
     if (g < nseg && (g > 0 || tid == 0)) {
       St st = state_of(g ? hypothesis(sbody, s0, c) : init);
       int p = 0, k = 0, err = 0, a = s0;
+      Used u;
       if (fine) {
         int32_t* rec =
             scratch + ((size_t)row * THREADS + tid) * (SUB - 1) * REC;
         for (int j = 1; j < SUB; ++j, rec += REC) {
           const int b = min(s0 + j * F, s1);
-          run<false>(r, a, b, st, p, k, err);
+          run<false>(r, a, b, st, p, k, err, u);
           a = b;
           const Live o = live(st);
           rec[0] = (int)o.bb;
@@ -564,7 +595,7 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
           rec[6] = k;
         }
       }
-      run<false>(r, a, s1, st, p, k, err);
+      run<false>(r, a, s1, st, p, k, err, u);
       sl.put(tid, live(st), p, k);
     }
     __syncthreads();
@@ -588,7 +619,8 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
         } else {
           St st = state_of(cur);
           int p = 0, k = 0, err = 0;
-          run<false>(r, b, min(b + S, blen), st, p, k, err);
+          Used u;
+          run<false>(r, b, min(b + S, blen), st, p, k, err, u);
           ex = live(st);
           dp = p;
           dk = k;
@@ -644,9 +676,10 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
     }
   }
   int err = 0;
+  Used u;
   if (active) {
     St st = state_of(entry);
-    run<true>(r, a, b, st, p, k, err);
+    run<true>(r, a, b, st, p, k, err, u);
     if (p >= r.olen) atomicMin(&s_stop, tid);
     atomicMax(&s_last, tid);
   }
@@ -660,11 +693,18 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
     s_p = 0;
     s_k = 0;
   }
+  // the span: the (sub-)segments up to the one that ends the row, each
+  // counted up to its own stop
+  if (active && tid <= last) {
+    if (u.bits) atomicAdd(&s_bits, u.bits);
+    if (u.raw) atomicAdd(&s_raw, u.raw);
+  }
   const int any_err = __syncthreads_or(active && tid <= last && err);
   const int n_rec = min(s_k, U);
   if (tid == 0) {
     p_final[row] = s_p;
     err_out[row] = any_err | (s_k > U ? 1 : 0);
+    span_out[row] = 2 * (2 + max(0, (s_bits + 15) / 16 - 1)) + s_raw;
     rounds_out[row] = rounds;
   }
   for (int s = n_rec + tid; s < U; s += THREADS) {
@@ -678,10 +718,10 @@ xh_parse_kernel(const uint8_t* __restrict__ body,
 extern "C" int xh_parse(const void* body, const void* blen,
                         const void* out_len, const void* ss,
                         const void* lim15, const void* rbf,
-                        const void* sym_by_rank, const void* order,
-                        void* rec_pos, void* rec_val, void* p_final, void* err,
-                        void* rounds, void* scratch, int n, int Pb, int U,
-                        void* stream) {
+                        const void* sym_by_rank, const void* hist_len,
+                        const void* order, void* rec_pos, void* rec_val,
+                        void* p_final, void* err, void* span, void* rounds,
+                        void* scratch, int n, int Pb, int U, void* stream) {
   const int smem = (Pb + 15) & ~15;
   cudaError_t e = cudaFuncSetAttribute(
       xh_parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -693,9 +733,9 @@ extern "C" int xh_parse(const void* body, const void* blen,
   xh_parse_kernel<<<n, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)body, (const int32_t*)blen, (const int32_t*)out_len,
       (const int32_t*)ss, (const int32_t*)lim15, (const int32_t*)rbf,
-      (const int32_t*)sym_by_rank, (const int32_t*)order, (int32_t*)rec_pos,
-      (int32_t*)rec_val,
-      (int32_t*)p_final, (int32_t*)err, (int32_t*)rounds, (int32_t*)scratch,
-      Pb, U);
+      (const int32_t*)sym_by_rank, (const int32_t*)hist_len,
+      (const int32_t*)order, (int32_t*)rec_pos, (int32_t*)rec_val,
+      (int32_t*)p_final, (int32_t*)err, (int32_t*)span, (int32_t*)rounds,
+      (int32_t*)scratch, Pb, U);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .common import ARCHIVE_PROBE_BUDGET, FAR_TAG, MAX_ROW, level_cap
+from .common import ARCHIVE_PROBE_BUDGET, FAR_TAG, MAX_RESOLVE_ROW, level_cap
 
 MAX_SEG = 4096  # a segment's double-buffered state fits shared memory
 
@@ -109,9 +109,9 @@ def _check(out, S):
     if out.dtype != torch.int32 or out.dim() != 2:
         raise ValueError("the far levels take an int32 [N, U] tensor")
     U = out.shape[1]
-    if not 0 < U <= MAX_ROW or U % S:
-        raise ValueError(f"rows must be at most {MAX_ROW} wide and cut into "
-                         f"whole segments of {S}, got {U}")
+    if not 0 < U <= MAX_RESOLVE_ROW or U % S:
+        raise ValueError(f"rows must be at most {MAX_RESOLVE_ROW} wide and "
+                         f"cut into whole segments of {S}, got {U}")
 
 
 def far_level_ref(out: torch.Tensor, S=None, cap=None,
@@ -179,9 +179,9 @@ def far_row_ref(out: torch.Tensor) -> torch.Tensor:
 
 
 def far_row(out: torch.Tensor) -> torch.Tensor:
-    """The last doubling level, over whole rows of any width up to 65536:
-    at most ``level_cap(U)`` rounds (19 at U = 65536), then the tags left
-    are zeroed.  Takes and returns int32 [N, U].
+    """The last doubling level, over whole rows of any width up to 131072:
+    at most ``level_cap(U)`` rounds (19 at U = 65536, 20 at 131072), then
+    the tags left are zeroed.  Takes and returns int32 [N, U].
 
     The rounds follow every chain to its end (a byte; 0 for a dead tag or
     a cycle), so the kernel sweeps a row's chunks of 1024 positions in

@@ -7,7 +7,8 @@ returns exactly the array that tpucomp hands to the far rounds.
 and runs :func:`resolve_near_ref` on CPU tensors.
 
 Each row of U output positions (any multiple of 512: 4096 for LZNT1's
-chunks, up to 65536 for Xpress Huffman's blocks) is cut into 512-byte
+chunks, 65536 for the batched decodes' blocks, up to 131072 for the
+one-shot XH decode's ``[history | block]`` rows) is cut into 512-byte
 segments, each resolved independently.  A literal resolves to its byte.  A copy
 whose source lies inside the segment takes the source's resolved value
 (so far tags propagate through in-segment copies); any other copy becomes
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .common import FAR_TAG, MAX_ROW
+from .common import FAR_TAG, MAX_RESOLVE_ROW
 
 SEG = 512  # segment length = near window
 
@@ -30,9 +31,9 @@ def _check(is_copy, disp, litv):
     if is_copy.dtype != torch.bool or is_copy.dim() != 2:
         raise ValueError("is_copy must be a bool [N, U] tensor")
     U = is_copy.shape[1]
-    if U % SEG or not 0 < U <= MAX_ROW:
+    if U % SEG or not 0 < U <= MAX_RESOLVE_ROW:
         raise ValueError(f"rows must be a multiple of {SEG} wide, at most "
-                         f"{MAX_ROW}, got {U}")
+                         f"{MAX_RESOLVE_ROW}, got {U}")
     for name, t in (("disp", disp), ("litv", litv)):
         if t.dtype != torch.int32 or t.shape != is_copy.shape:
             raise ValueError(f"{name} must be an int32 [N, {U}] tensor")
@@ -69,7 +70,7 @@ def resolve_near(is_copy: torch.Tensor, disp: torch.Tensor,
 
     Args:
       is_copy: bool [N, U], the position is inside a copy token; U is a
-               multiple of 512, at most 65536.
+               multiple of 512, at most 131072.
       disp:    int32 [N, U], its displacement (>= 0, clamped to 17 bits;
                used where is_copy).
       litv:    int32 [N, U], the literal byte elsewhere.

@@ -17,6 +17,16 @@ is in slot k of the ``[N, U]`` planes.  ``rec_pos`` is its output position,
 ``SENT`` and 0.  Positions strictly increase along a row, so a row has at
 most ``out_len <= U`` records.
 
+The history variant of tpucomp's XLA scan (``make_decoder(...,
+want_span=True, with_history=True)``, ``codecs/xpress_huff.py:170-390``),
+which the one-shot multi-block decode runs, adds two things: each row's
+history reach ``hist_len`` (an offset may reach that many bytes before
+the block's start: the check is ``offset > p + hist_len``), and its byte
+span, ``2 * (2 + max(0, ceil(bits / 16) - 1)) + raw``, from the code and
+offset bits the row consumed and its escape bytes, counted while the row
+is active (before the body's end and before out_len): where the next
+block starts.
+
 The kernel cuts each body into segments (:func:`segments`), decodes them
 all at once from guessed entry states, and re-decodes in rounds those
 whose true entry (the exit of the segment before) differs, until none
@@ -70,14 +80,15 @@ def segments(blen: int, ss: int) -> tuple[int, int]:
     return S, -(-blen // S)
 
 
-def _check(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U):
+def _check(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U, hist_len):
     if body.dtype != torch.uint8 or body.dim() != 2:
         raise ValueError("body must be a uint8 [N, Pb] tensor")
     N = body.shape[0]
     for name, t, shape in (("blen", blen, (N,)), ("out_len", out_len, (N,)),
                            ("ss", ss, (N,)), ("lim15", lim15, (N, 16)),
                            ("rbf", rbf, (N, 16)),
-                           ("sym_by_rank", sym_by_rank, (N, 512))):
+                           ("sym_by_rank", sym_by_rank, (N, 512)),
+                           ("hist_len", hist_len, (N,))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be an int32 {list(shape)} tensor")
     if not 0 < U <= MAX_ROW:
@@ -90,18 +101,36 @@ def _shl(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, x << s.clamp(0, 31), 0)
 
 
-def xh_parse_ref(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U):
+def _hist_len(hist_len, body):
+    """``hist_len``, or a reach of 0 for every row."""
+    if hist_len is None:
+        return torch.zeros(body.shape[0], dtype=torch.int32,
+                           device=body.device)
+    return hist_len
+
+
+def span_of(bits: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """A block's byte span from the code and offset bits it consumed and
+    its escape bytes: two priming words, one more word for each 16 bits
+    after the first word's, and the escape bytes (tpucomp's
+    ``_decode_impl``, the oracle's ``_block_byte_span``)."""
+    return 2 * (2 + ((bits + 15) // 16 - 1).clamp(min=0)) + raw
+
+
+def xh_parse_ref(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U,
+                 hist_len=None, want_span=False):
     """Plain PyTorch version of :func:`xh_parse`: a Python loop over body
     steps, vectorised over rows, each row's substep count ``ss`` a mask.
     Substeps stop once no row can consume anything, which changes
     nothing: such a substep leaves every row as it was."""
-    _check(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U)
+    hl = _hist_len(hist_len, body)
+    _check(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U, hl)
     N, Pb = body.shape
     dev = body.device
     i32 = dict(dtype=torch.int32, device=dev)
     z = torch.zeros(N, **i32)
     (p, mode, pend, bitbuf, bitcount, lowbyte, obc_p, lh_p, off_p, len_acc,
-     err, cnt) = (z.clone() for _ in range(12))
+     err, cnt, bits, esc_bytes) = (z.clone() for _ in range(14))
     # one spare column U takes the writes of rows without a record
     rec_pos = torch.full((N, U + 1), SENT, **i32)
     rec_val = torch.zeros((N, U + 1), **i32)
@@ -134,6 +163,9 @@ def xh_parse_ref(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U):
         is_e32d = active & (mode == _M_E32D)
 
         lowbyte = torch.where(is_w0, b, lowbyte)
+        # the span counts every escape-role byte
+        esc_bytes = esc_bytes + (is_eb | is_e16a | is_e16b | is_e32nd
+                                 | is_e32d).int()
         len_acc = torch.where(
             is_e16a | (active & (mode == _M_E32A)), b,
             torch.where(active & (mode == _M_E32B), len_acc | (b << 8),
@@ -155,7 +187,8 @@ def xh_parse_ref(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U):
             torch.where(e16_done, u16v + MIN_MATCH,
                         torch.where(is_e32d, u32v + MIN_MATCH, 0)))
         esc_match = eb_done | e16_done | is_e32d
-        err = err | (esc_match & ((off_p > p) | (p + esc_len > olen))).int()
+        err = err | (esc_match & ((off_p > p + hl)
+                                  | (p + esc_len > olen))).int()
         record(esc_match, p, COPY_BIT | off_p)
         p = torch.where(esc_match, torch.clamp(p + esc_len, max=U), p)
         mode = torch.where(
@@ -185,9 +218,10 @@ def xh_parse_ref(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U):
             offv = (1 << obc_p) | torch.where(obc_p > 0, raw, 0)
             bitbuf = torch.where(do_off, bitbuf << obc_p, bitbuf)
             bitcount = bitcount - do_off.int() * obc_p
+            bits = bits + do_off.int() * obc_p
             short = do_off & (lh_p < 15)
             mlen = lh_p + MIN_MATCH
-            err = err | (short & ((offv > p) | (p + mlen > olen))).int()
+            err = err | (short & ((offv > p + hl) | (p + mlen > olen))).int()
             record(short, p, COPY_BIT | offv)
             p = torch.where(short, torch.clamp(p + mlen, max=U), p)
             off_p = torch.where(do_off, offv, off_p)
@@ -207,6 +241,7 @@ def xh_parse_ref(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U):
             do_sym = do_sym & found
             bitbuf = torch.where(do_sym, bitbuf << level, bitbuf)
             bitcount = bitcount - do_sym.int() * level
+            bits = bits + do_sym.int() * level
             is_lit = do_sym & (sym < 256)
             record(is_lit, p, sym)
             p = p + is_lit.int()
@@ -230,10 +265,12 @@ def xh_parse_ref(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U):
     # more records than slots: only a row whose position moved backwards
     # (an escape length that wraps int32) gets here
     err = err | (cnt > U).int()
-    return rec_pos[:, :U].contiguous(), rec_val[:, :U].contiguous(), p, err
+    out = (rec_pos[:, :U].contiguous(), rec_val[:, :U].contiguous(), p, err)
+    return (*out, span_of(bits, esc_bytes)) if want_span else out
 
 
-def xh_parse(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U: int):
+def xh_parse(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U: int,
+             hist_len=None, want_span=False):
     """Parse a batch of single-block XH bodies into token records.
 
     Args:
@@ -245,19 +282,25 @@ def xh_parse(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U: int):
       lim15, rbf: int32 [N, 16], from :func:`huffman.level_tables`.
       sym_by_rank: int32 [N, 512], from :func:`huffman.rank_to_symbol_table`.
       U:      the output width of a row (record slots per row).
+      hist_len: int32 [N] or None (0), how many bytes before the block's
+              start an offset may reach (the history the row has).
+      want_span: also return each row's byte span.
 
-    Returns (rec_pos [N, U], rec_val [N, U], p_final [N], err [N]), all
-    int32: see the module docstring.  ``p_final`` is the decoded length;
-    ``err`` flags a match before the start or past ``out_len``, a refill
-    that leaves decodable bits behind, and more records than slots.
+    Returns (rec_pos [N, U], rec_val [N, U], p_final [N], err [N]), and
+    with ``want_span`` span [N], all int32: see the module docstring.
+    ``p_final`` is the decoded length; ``err`` flags a match before the
+    history's start or past ``out_len``, a refill that leaves decodable
+    bits behind, and more records than slots.  ``span`` is exact on rows
+    without err (tpucomp reads it on no other).
     """
+    hl = _hist_len(hist_len, body)
     if not _build.use_kernel(body, blen, out_len, ss, lim15, rbf,
-                             sym_by_rank):
+                             sym_by_rank, hl):
         return xh_parse_ref(body, blen, out_len, ss, lim15, rbf,
-                            sym_by_rank, U)
-    _check(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U)
+                            sym_by_rank, U, hl, want_span)
+    _check(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U, hl)
     ins = [t.contiguous() for t in (body, blen, out_len, ss, lim15, rbf,
-                                    sym_by_rank)]
+                                    sym_by_rank, hl)]
     N, Pb = body.shape
     if Pb > MAX_BODY:
         raise ValueError(f"bodies of at most {MAX_BODY} bytes, not {Pb} (the "
@@ -266,6 +309,7 @@ def xh_parse(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U: int):
     rec_val = torch.empty_like(rec_pos)
     p_final = torch.empty((N,), dtype=torch.int32, device=body.device)
     err = torch.empty_like(p_final)
+    span = torch.empty_like(p_final)
     rounds = torch.empty_like(p_final)
     if N:
         # tier-3 rows take the longest: their blocks go first
@@ -276,10 +320,12 @@ def xh_parse(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U: int):
         scratch = torch.empty((N, THREADS, HYP - 1, REC), dtype=torch.int32,
                               device=body.device)
         _build.launch("xh_parse", ins + [order, rec_pos, rec_val, p_final,
-                                         err, rounds, scratch], [N, Pb, U])
+                                         err, span, rounds, scratch],
+                      [N, Pb, U])
         xh_parse.launches += 1
         xh_parse.rounds = rounds
-    return rec_pos, rec_val, p_final, err
+    out = (rec_pos, rec_val, p_final, err)
+    return (*out, span) if want_span else out
 
 
 xh_parse.launches = 0
