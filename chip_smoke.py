@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of tpucomp_torch on one NVIDIA GPU: LZNT1 decode, Xpress
 Huffman (XH) batched decode, LZNT1 encode, plain Xpress unit decode and
-encode, XH encode and the one-shot XH decode end to end.
+encode, XH encode, the one-shot XH decode and plain Xpress's single-stream
+encode end to end.
 
     python3 chip_smoke.py
 
@@ -148,6 +149,21 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    GB/s of each call, the median of 5 (the whole corpus: 1 run), its
    batch decodes and host steps; peak memory; one call under the
    profiler.
+15. Xpress stream encode (``compress("xpress", data)`` over 64 KiB: one
+   stream, lanes of [8 KiB history | 64 KiB] rows of 73,728): on the
+   corpus's first dispatch (128 lanes), the run matcher on its rows, the
+   row sort of its hash keys and of the un-sort (beside ``torch.sort``
+   (+ ``gather``)) and the greedy walk on its [128, 65536] walk inputs,
+   each against its plain version, equal exactly, with both times and the
+   bound.  Then, with every launch count set to 0 first, the committed
+   vector ``XP_STREAM_VECTOR`` (the card's bytes equal to it by sha256)
+   and the corpus (513 lanes, 5 dispatches), decoding back through the
+   native C decoder and equal to its run in dispatches of 8 lanes; every
+   kernel of the path must have launched.  Then the size beside the
+   native C one-shot encoder's and beside ``compress_batch`` of the 64
+   KiB units; GB/s, the median of 5 after a warm-up; the host clock of
+   each step of a dispatch, summed over the dispatches; peak memory; one
+   call under the profiler.
 
 The last two lines are JSON: the kernels (the entries of the fill, the
 run matcher and the probes also list each shape and input under
@@ -192,6 +208,14 @@ XH_VECTOR = os.path.join("tests", "data", "xh_cross_block.bin")
 XH_VECTOR_INPUT_SHA256 = \
     "d20845339a4c664554b3c4a8e437c4d10b31aa82287abba7dec701e948e955c6"
 XH_SPEC_BYTES = 8 << 20  # the corpus prefix of the speculative path
+# plain Xpress's single stream over 64 KiB: tpucomp's compress_stream of
+# benchmarks.corpus._synthetic(3 * 65536 + 4321) (four lanes, the last
+# partial); tests/test_torch_xpress_stream_wide.py regenerates it
+XP_STREAM_VECTOR = os.path.join("tests", "data", "xp_stream.bin")
+XP_STREAM_INPUT_SHA256 = \
+    "3133b93a5f59fcfc8c0bd37daab50ba399f621a94e2147fedf778f4034a0a6a4"
+XP_STREAM_SHA256 = \
+    "5c8b7b0c543ae009f292449b4e4af63dd2f6fdf5b0f5db9d6083544a4bd52b78"
 XH_TEN_BLOCKS = 10 * UNIT - 1234  # tpucomp's test shape: a partial block
 
 
@@ -1734,16 +1758,16 @@ def xh_encode_phases(dev, units, native, kernels) -> dict:
     return launches
 
 
-def shape_entry(kernels, name, where, got) -> None:
+def shape_entry(kernels, name, where, got, **extra) -> None:
     """Fold :func:`hold_to_plain`'s result ``got`` (output, max abs err,
     kernel ms, plain ms, bytes moved) into kernel ``name``'s entry, as a
-    shape of its ``shapes``."""
+    shape of its ``shapes`` (with ``extra``)."""
     _, max_err, ms, plain_ms, moved = got
     k = next(k for k in kernels if k["name"] == name)
     k["max_abs_err"] = max(k["max_abs_err"], max_err)
     k.setdefault("shapes", []).append({
         "where": where, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": moved / HBM_BYTES_PER_S * 1e3})
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, **extra})
 
 
 def xh_oneshot_phases(dev, data: bytes, native, kernels) -> dict:
@@ -1938,10 +1962,135 @@ def xh_oneshot_phases(dev, data: bytes, native, kernels) -> dict:
             **launches}
 
 
+def xp_stream_phases(dev, data: bytes, native, kernels, smi: str) -> dict:
+    """Phase 15, plain Xpress's single-stream encode.  Adds this path's
+    comparisons to the entries of the kernels it runs (as ``shapes``) and
+    returns the launches of every kernel on its main path."""
+    import torch
+
+    import tpucomp_torch
+    from benchmarks.corpus import _synthetic
+    from tpucomp_torch.codecs import xpress as xp
+    from tpucomp_torch.config import DEFAULT as MATCH
+    from tpucomp_torch.kernels import commit, match, runs, sort
+
+    H, cap = xp.WINDOW, xp.stream_lanes(UNIT)
+    lanes = -(-len(data) // UNIT)
+    vec_data = _synthetic(3 * UNIT + 4321)
+    require(hashlib.sha256(vec_data).hexdigest() == XP_STREAM_INPUT_SHA256,
+            "the stream vector's input has another sha256")
+    with open(os.path.join(ROOT, XP_STREAM_VECTOR), "rb") as f:
+        vec = f.read()
+    require(hashlib.sha256(vec).hexdigest() == XP_STREAM_SHA256,
+            f"{XP_STREAM_VECTOR} has another sha256")
+    print(f"xpress stream ({smi}): the corpus, {len(data)} bytes, is {lanes} "
+          f"lanes of {UNIT} in dispatches of {cap}; the vector "
+          f"{XP_STREAM_VECTOR}, {len(vec)} bytes for {len(vec_data)}")
+
+    # ---- 15. kernel vs plain ------------------------------------------------
+    buf = np.frombuffer(data, np.uint8)
+    units, ulen, hist0, h0v = xp.stream_rows(buf, 0, cap, UNIT, dev)
+    xext = torch.cat([torch.cat([hist0[None], units[:-1, -H:]]), units], 1)
+    where = f"Xpress stream [{cap}, {H + UNIT}]"
+    got = hold_to_plain(where, "run_matchlens", runs.run_matchlens,
+                        runs.run_matchlens_ref, (xext, tuple(MATCH.run_disps)))
+    shape_entry(kernels, "run_matchlens", where, got)
+    pos_bits = (H + UNIT - 1).bit_length()
+    key = match.hash_keys(xext, MATCH.hash_bits, pos_bits)
+    err, ms, plain_ms, moved, lib_ms = sort_case(
+        where, "sort_rows (hash key, 1 plane)", (key,))
+    shape_entry(kernels, "sort_rows", f"{where}, hash key",
+                (None, err, ms, plain_ms, moved), library_ms=lib_ms)
+    del key
+    spos, packed, _ = match.hash_best_match_sorted(
+        xext, H + UNIT, MATCH.hash_bits, MATCH.num_candidates, MATCH.cap,
+        max_disp=H)
+    err, ms, plain_ms, moved, lib_ms = sort_case(
+        where, "sort_rows (un-sort, 2 planes)", (spos, packed))
+    shape_entry(kernels, "sort_rows", f"{where}, un-sort",
+                (None, err, ms, plain_ms, moved), library_ms=lib_ms)
+    del spos, packed, xext
+    bl, _, use, ok = xp.stream_find_matches(units, ulen, hist0, h0v)
+    wwhere = f"Xpress stream walk [{cap}, {UNIT}]"
+    got = hold_to_plain(wwhere, "greedy_commit", commit.greedy_commit,
+                        commit.greedy_commit_ref, (use, bl, ok),
+                        plain_reps=1)
+    shape_entry(kernels, "greedy_commit", wwhere, got)
+    walk_rounds(wwhere, commit.greedy_commit, UNIT)
+    del units, ulen, hist0, bl, use, ok, got
+
+    # ---- 15. main path --------------------------------------------------------
+    counters = launch_counters()
+    path = ("run_matchlens", "sort_rows", "greedy_commit")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    vec_out = tpucomp_torch.compress("xpress", vec_data, device="cuda")
+    out = tpucomp_torch.compress("xpress", data, device="cuda")
+    launches = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"xpress stream main path launches: {launches}")
+    require(vec_out == vec, "the card's stream of the vector's input "
+            f"differs from {XP_STREAM_VECTOR}")
+    print(f"xpress stream: the vector's input encodes to {XP_STREAM_VECTOR} "
+          f"(sha256 {XP_STREAM_SHA256})")
+    require(native.xpress_decompress(out, len(data)) == data,
+            "the corpus's stream does not decode back through the native C "
+            "decoder")
+    kept = xp.ENCODE_BATCH_CAP
+    xp.ENCODE_BATCH_CAP = 8  # dispatches of 8 lanes
+    try:
+        t0 = time.perf_counter()
+        eight = tpucomp_torch.compress("xpress", data, device="cuda")
+        eight_s = time.perf_counter() - t0
+        n_eight = -(-lanes // xp.stream_lanes(UNIT))
+    finally:
+        xp.ENCODE_BATCH_CAP = kept
+    require(eight == out, "the corpus's stream differs in dispatches of 8 "
+            "lanes")
+    for name in path:
+        require(launches.get(name, 0) > 0,
+                f"{name} never launched on the Xpress stream path")
+    units_all = [data[i:i + UNIT] for i in range(0, len(data), UNIT)]
+    per_unit = sum(map(len, tpucomp_torch.compress_batch(
+        "xpress", units_all, device="cuda")))
+    ref = native.xpress_compress(data)
+    print(f"xpress stream: the corpus encodes to {len(out)} bytes (ratio "
+          f"{len(out) / len(data)}), decoding back through the native C "
+          f"decoder; equal in {n_eight} dispatches of 8 lanes "
+          f"({eight_s:.2f} s); native C one-shot encoder {len(ref)} bytes; "
+          f"compress_batch of the {len(units_all)} units of {UNIT} "
+          f"{per_unit} bytes (the stream {100 * (1 - len(out) / per_unit):.2f}"
+          "% smaller)")
+    print(f"xpress stream peak device memory ({smi}): {peak / 2**30:.3f} GiB")
+
+    ms = cuda_ms(lambda: tpucomp_torch.compress("xpress", data,
+                                                device="cuda"), reps=5)
+    med = statistics.median(ms)
+    print(f"xpress stream compress ({smi}): median {med:.4f} ms of "
+          f"{[round(m, 4) for m in ms]} -> {len(data) / med / 1e6:.4f} GB/s")
+    runs_steps = []
+    for _ in range(3):
+        steps: dict[str, list[float]] = {}
+        got = xp.compress_stream(data, device="cuda",
+                                 step=lambda name, fn: clock(steps, name, fn))
+        require(got == out, "the stepped stream differs")
+        runs_steps.append({k: sum(v) for k, v in steps.items()})
+    print(f"xpress stream steps ({smi}), host clock, each synchronised, "
+          f"summed over {-(-lanes // cap)} dispatches, median of 3 (ms): "
+          + "; ".join(f"{k} {statistics.median(r[k] for r in runs_steps):.4f}"
+                      for k in runs_steps[0]))
+    profile_device(f"xpress stream compress of the corpus ({smi})",
+                   lambda: tpucomp_torch.compress("xpress", data,
+                                                  device="cuda"))
+    return launches
+
+
 def main() -> None:
     import torch
 
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    started = time.perf_counter()
     sys.path.insert(0, ROOT)
     import tpucomp_torch
     from benchmarks.corpus import silesia_like
@@ -2140,7 +2289,13 @@ def main() -> None:
     xho_launches = xh_oneshot_phases(dev, data, native, kernels)
     for k in kernels:
         k["launches"] = k.get("launches", 0) + xho_launches.get(k["name"], 0)
+    # ---- 15. plain Xpress single-stream encode ----------------------------
+    xps_launches = xp_stream_phases(dev, data, native, kernels, smi)
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + xps_launches.get(k["name"], 0)
     require(len(kernels) == 12, f"{len(kernels)} kernels in the line, not 12")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - started:.1f} s ({smi})")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ import torch
 
 import tpucomp_torch
 from chip_smoke import XH_VECTOR, XH_VECTOR_INPUT_SHA256, Native
+from chip_smoke import XP_STREAM_INPUT_SHA256, XP_STREAM_SHA256
 from tpucomp_torch.codecs import lznt1 as lz
 from tpucomp_torch.codecs import xpress as xp
 from tpucomp_torch.codecs import xpress_huff as xh
@@ -669,6 +670,37 @@ def test_run_matchlens_kernel_matches_plain(U, case, dev):
     _assert_equal(got, runs.run_matchlens_ref(xs, disps))
 
 
+@pytest.mark.parametrize("U", [73728, 131072])
+def test_stream_width_kernels_match_plain(U, dev):
+    """The run matcher and the row sort at the stream encoder's [8 KiB
+    history | 64 KiB lane] rows (73,728) and at their widest (131072):
+    ``_byte_rows``; random unique keys with a payload plane; the match
+    finder's hash keys of those rows at 17 position bits, and the
+    un-sort of their positions."""
+    r = np.random.default_rng(U + 3)
+    x = torch.from_numpy(_byte_rows(U, U)).to(dev)
+    disps = (1, 2, 3)
+    _assert_equal(runs.run_matchlens(x, disps),
+                  runs.run_matchlens_ref(x, disps))
+    key = torch.from_numpy(np.stack([r.permutation(U) for _ in range(4)])
+                           .astype(np.int32) - (1 << 20)).to(dev)
+    pay = torch.from_numpy(r.integers(-(1 << 31), 1 << 31, key.shape)
+                           .astype(np.int32)).to(dev)
+    _assert_equal(sort.sort_rows((key, pay)), sort.sort_rows_ref((key, pay)))
+    hkey = match.hash_keys(x, 13, 17)
+    got = sort.sort_rows((hkey,))
+    _assert_equal(got, sort.sort_rows_ref((hkey,)))
+    spos = got[0] & ((1 << 17) - 1)
+    unsort = (spos, hkey)
+    _assert_equal(sort.sort_rows(unsort), sort.sort_rows_ref(unsort))
+
+
+def test_run_matchlens_kernel_refuses_wide_rows(dev):
+    with pytest.raises(ValueError, match="at most 131072"):
+        runs.run_matchlens(torch.zeros((1, 131073), dtype=torch.uint8,
+                                       device=dev), (1, 2, 3))
+
+
 def _sort_keys(U, r):
     """Eight rows of unique keys: a permutation, values of both signs,
     reversed and sorted rows, the widest keys, keys that vary only in
@@ -739,8 +771,8 @@ def test_sort_rows_kernel_many_planes_and_refusals(dev):
     before = sort.sort_rows.launches
     _assert_equal(sort.sort_rows(planes), sort.sort_rows_ref(planes))
     assert sort.sort_rows.launches == before + 2
-    with pytest.raises(ValueError, match="at most 65536"):
-        sort.sort_rows((torch.zeros((1, 65537), dtype=torch.int32,
+    with pytest.raises(ValueError, match="at most 131072"):
+        sort.sort_rows((torch.zeros((1, 131073), dtype=torch.int32,
                                     device=dev),))
     with pytest.raises(ValueError, match="contiguous"):
         sort.sort_rows((key[:, ::2],))
@@ -957,6 +989,26 @@ def test_xpress_encode_on_card_matches_cpu_and_round_trips(dev):
     s = tpucomp_torch.compress("xpress", d)
     assert s == tpucomp_torch.compress("xpress", d, device="cpu")
     assert tpucomp_torch.decompress("xpress", s, len(d)) == d
+
+
+def test_xpress_stream_encode_on_card_matches_cpu(dev, monkeypatch):
+    """``compress`` over 64 KiB (one stream, 64 KiB lanes) on the card
+    equals its CPU run and the committed vector; 8 KiB lanes in
+    dispatches of 8 equal their CPU run and decode back."""
+    from benchmarks.corpus import _synthetic
+
+    native = Native()
+    data = _synthetic(3 * 65536 + 4321)
+    assert hashlib.sha256(data).hexdigest() == XP_STREAM_INPUT_SHA256
+    s = tpucomp_torch.compress("xpress", data)
+    assert s == tpucomp_torch.compress("xpress", data, device="cpu")
+    assert hashlib.sha256(s).hexdigest() == XP_STREAM_SHA256
+    assert native.xpress_decompress(s, len(data)) == data
+    monkeypatch.setattr(xp, "ENCODE_BATCH_CAP", 1)
+    small = data[:20 * 8192 + 1234]
+    s = xp.compress_stream(small, 8192)
+    assert s == xp.compress_stream(small, 8192, device="cpu")
+    assert native.xpress_decompress(s, len(small)) == small
 
 
 @pytest.mark.parametrize("K", [512, 16384, 65536])

@@ -150,11 +150,12 @@ def test_decompress_batch_matches_tpucomp():
 @pytest.mark.parametrize("fmt", ["xpress", "xpress_huff",
                                  tpucomp_torch.Format.LZX])
 def test_unported_formats_raise(fmt):
-    """Every call of an unported format raises; of XPRESS only ``compress``
-    of more than 64 KiB does (tpucomp's single-stream encoder); of
-    XPRESS_HUFF none does: every call is ported, and its one-shot
-    ``decompress`` of a stream shorter than a table raises ``DataError``,
-    as tpucomp's does, and decodes a real stream."""
+    """Every call of an unported format raises; of XPRESS and XPRESS_HUFF
+    none does: every call is ported.  XPRESS_HUFF's one-shot
+    ``decompress`` of a stream shorter than a table, and XPRESS's of a
+    stream too short for its output, raise ``DataError``, as tpucomp's
+    do; XPRESS's ``compress`` of more than 64 KiB gives one stream that
+    decodes back."""
     calls = [lambda: tpucomp_torch.decompress(fmt, b"ab", 2, device="cpu")]
     if fmt == "xpress_huff":
         with pytest.raises(tpucomp.DataError):
@@ -166,14 +167,17 @@ def test_unported_formats_raise(fmt):
             == b"hello hello hello"
         return
     if fmt == "xpress":
-        calls = [lambda: tpucomp_torch.compress(fmt, bytes(65537),
-                                                device="cpu")]
-    else:
-        calls += [lambda: tpucomp_torch.compress(fmt, b"ab", device="cpu"),
-                  lambda: tpucomp_torch.compress_batch(fmt, [b"ab"],
-                                                       device="cpu"),
-                  lambda: tpucomp_torch.decompress_batch(
-                      fmt, [b"ab"], [2], device="cpu")]
+        with pytest.raises(tpucomp.DataError):
+            tpucomp.decompress(fmt, b"ab", 2, backend="tpu")
+        with pytest.raises(tpucomp_torch.DataError, match="malformed"):
+            calls[0]()
+        s = tpucomp_torch.compress(fmt, bytes(65537), device="cpu")
+        assert _native.xpress_decompress(s, 65537) == bytes(65537)
+        return
+    calls += [lambda: tpucomp_torch.compress(fmt, b"ab", device="cpu"),
+              lambda: tpucomp_torch.compress_batch(fmt, [b"ab"], device="cpu"),
+              lambda: tpucomp_torch.decompress_batch(fmt, [b"ab"], [2],
+                                                     device="cpu")]
     for call in calls:
         with pytest.raises(tpucomp_torch.UnsupportedFormatError,
                            match="not ported"):

@@ -142,8 +142,8 @@ def test_errors():
                                            device="cpu")),
         (E.UnsupportedFormatError, lambda: E.decompress(
             "xpress", stream, 65537, device="cpu")),
-        (E.UnsupportedFormatError, lambda: E.compress(
-            "xpress", bytes(65537), device="cpu")),
+        (E.ArgError, lambda: xp.compress_stream(b"abc", unit_size=4096,
+                                                device="cpu")),
     ]
     for exc, call in cases:
         with pytest.raises(exc):

@@ -6,8 +6,9 @@ by hand for Hopper (``kernels/csrc``, built by nvcc at first use into
 ``tpucomp_torch/_build/``).  It never imports JAX.
 
 Ported so far: LZNT1 encode and decode, plain Xpress unit encode and
-decode (one-shot up to 64 KiB), and Xpress Huffman encode and decode
-(one-shot, multi-block streams included, and batched).
+decode (one-shot decode up to 64 KiB; one-shot encode of any length, one
+stream), and Xpress Huffman encode and decode (one-shot, multi-block
+streams included, and batched).
 
     import tpucomp_torch
     stream = tpucomp_torch.compress("lznt1", data)              # on "cuda"
@@ -20,6 +21,7 @@ decode (one-shot up to 64 KiB), and Xpress Huffman encode and decode
     data = tpucomp_torch.decompress("xpress_huff", stream, out_len)
     streams = tpucomp_torch.compress_batch("xpress", units)    # <= 64 KiB each
     units = tpucomp_torch.decompress_batch("xpress", streams, out_lens)
+    stream = tpucomp_torch.compress("xpress", data)            # any length
     stream = tpucomp_torch.compress("xpress_huff", data)       # 64 KiB blocks
     streams = tpucomp_torch.compress_batch("xpress_huff", units)
 

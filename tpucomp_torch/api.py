@@ -5,8 +5,9 @@ Counterparts of ``tpucomp.compress`` / ``decompress`` (``backend="tpu"``),
 Every call that computes takes a ``device``; the default is ``"cuda"``,
 and asking for CUDA where it is not available raises.  Ported so far:
 LZNT1 and plain Xpress encode and decode (one-shot and batched; Xpress
-one-shot up to 64 KiB), and Xpress Huffman encode and decode (one-shot,
-multi-block streams included, and batched); any other format raises
+one-shot decode up to 64 KiB, one-shot encode of any length as one
+stream), and Xpress Huffman encode and decode (one-shot, multi-block
+streams included, and batched); any other format raises
 :class:`UnsupportedFormatError`.
 """
 
@@ -29,7 +30,9 @@ def _not_ported(fmt: Format, call: str):
 
 def compress(fmt, data: bytes, *, device="cuda") -> bytes:
     """One-shot compress of ``data`` on ``device``: the same stream as
-    ``tpucomp.compress(fmt, data, backend="tpu")``."""
+    ``tpucomp.compress(fmt, data, backend="tpu")``.  XPRESS over 64 KiB is
+    one stream of tpucomp's single-stream encoder
+    (:func:`tpucomp_torch.codecs.xpress.compress_stream`)."""
     if data is None:
         raise ArgError("data must be bytes-like")
     fmt = formats.canonical(fmt)

@@ -29,9 +29,13 @@ The encode pipeline (:func:`encode_batch`), whose streams equal tpucomp's
   byte assembly        -> token, escape, shared-nibble and flag-word bytes
                           by direct scatters
 
-The one-shot calls take buffers of at most 64 KiB, as one unit of 4, 16
-or 64 KiB, as tpucomp's device backend does.  tpucomp's single-stream
-encoder for larger buffers (``compress_stream``) is not ported yet.
+The one-shot calls take buffers of at most 64 KiB as one unit of 4, 16
+or 64 KiB, as tpucomp's device backend does.  ``compress`` of a larger
+buffer runs the single-stream encoder (:func:`compress_stream`,
+tpucomp's): the same pipeline over rows of [8 KiB history | 64 KiB
+lane], 73,728 wide, with the stream's flag and nibble state carried
+across lanes and dispatches.  One-shot decode over 64 KiB is host work
+in tpucomp too (a plain Xpress stream has no block boundaries).
 """
 
 from __future__ import annotations
@@ -254,45 +258,62 @@ def find_matches(units: torch.Tensor, ulen: torch.Tensor,
     where it stands) and ``okpos`` (bool: inside the unit), the walk's
     inputs.
     """
-    match = DEFAULT if match is None else match
     N, n = units.shape
     if units.dtype != torch.uint8 or units.dim() != 2 or not 0 < n <= UNIT:
         raise ValueError(f"units must be a uint8 [N, n <= {UNIT}] tensor")
     if ulen.dtype != torch.int32 or tuple(ulen.shape) != (N,):
         raise ValueError("ulen must be an int32 [N] tensor")
-    dev = units.device
-    pos = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
-    in_len = ulen[:, None]
+    best_len, best_disp = best_candidates(units, match, max_disp)
+    return walk_inputs(best_len, best_disp, ulen)
 
-    # candidates: runs for each d, then the hash match(es); a later
-    # candidate wins only with a strictly longer length
-    best_len = torch.zeros((N, n), dtype=torch.int32, device=dev)
-    best_disp = torch.ones((N, n), dtype=torch.int32, device=dev)
 
-    def consider(length, disp, cond):
+def best_candidates(x: torch.Tensor, match: MatchFinderConfig | None,
+                    max_disp: int | None, source_ok=None):
+    """The candidate search of the match finders over rows ``x`` (uint8
+    [N, w]): runs for each d of ``match.run_disps``, then the hash
+    match(es); a later candidate wins only with a strictly longer length.
+    ``source_ok(disp)``, where given, is a bool mask of the positions
+    whose match at ``disp`` may count (the stream encoder's: no source in
+    the zeros before the stream).  Returns (best_len, best_disp), int32
+    [N, w], unclipped."""
+    match = DEFAULT if match is None else match
+    N, w = x.shape
+    best_len = torch.zeros((N, w), dtype=torch.int32, device=x.device)
+    best_disp = torch.ones((N, w), dtype=torch.int32, device=x.device)
+
+    def consider(length, disp):
         nonlocal best_len, best_disp
-        better = cond & (length > best_len)
+        better = (length >= MIN_MATCH) & (length > best_len)
+        if source_ok is not None:
+            better = better & source_ok(disp)
         best_len = torch.where(better, length, best_len)
         best_disp = torch.where(better, disp, best_disp)
 
     run_disps = tuple(match.run_disps)
-    for d, ml in zip(run_disps, run_matchlens(units, run_disps)):
-        consider(ml, d, ml >= MIN_MATCH)
+    for d, ml in zip(run_disps, run_matchlens(x, run_disps)):
+        consider(ml, d)
     passes = [(match.num_candidates, 3)]
     if match.second_hash_cands:
         passes.append((match.second_hash_cands, 5))
     for num_cands, seed in passes:
-        hl, hd = hash_best_match(units, n, hash_bits=match.hash_bits,
+        hl, hd = hash_best_match(x, w, hash_bits=match.hash_bits,
                                  num_cands=num_cands, cap=match.cap,
                                  max_disp=max_disp, seed=seed)
         # exact lengths past the compare cap (the reference is uncapped)
-        hl = extend_saturated(hl, hd, match.cap, n)
-        consider(hl, hd, hl >= MIN_MATCH)
+        consider(extend_saturated(hl, hd, match.cap, w), hd)
+    return best_len, best_disp
 
+
+def walk_inputs(best_len, best_disp, ulen):
+    """The lengths clipped to each unit and the lazy step: defer a match
+    when the next position has a strictly longer one.  Returns the
+    walk's inputs (best_len, best_disp, use_match, okpos) as
+    :func:`find_matches`."""
+    N, n = best_len.shape
+    pos = torch.arange(n, dtype=torch.int32, device=best_len.device)[None, :]
+    in_len = ulen[:, None]
     best_len = torch.minimum(best_len, in_len - pos)
     is_match = (best_len >= MIN_MATCH) & (pos + MIN_MATCH <= in_len)
-    # lazy step: defer a match when the next position has a strictly
-    # longer one
     next_bl = torch.zeros_like(best_len)
     next_bl[:, :-1] = best_len[:, 1:]
     use_match = is_match & ~(next_bl > best_len)
@@ -310,6 +331,29 @@ def _match_extra_sizes(L, opens):
     sz = ((nib_user & opens).int() + (nib_user & (rem >= 15)).int()
           + 2 * big.int() + 4 * (big & (L >= 0x10000)).int())
     return sz, rem, big
+
+
+def _token_bytes(committed, iscp, off, b0, tokv, L, rem, big, opens, MAXP):
+    """The bytes of every committed token from its first byte's offset
+    ``off``: the literal or the match's two token bytes, then the escape
+    bytes [nibble (if it opens; written by the caller)] [byte | 0xFF]
+    [u16 lo, hi] [u32 b0..b3], every one gated on the committed parse.
+    Returns int32 [N, MAXP], 0 elsewhere."""
+    esc0 = off + 2 + opens.int()
+    has_esc = iscp & (rem >= 15)
+    has_big = iscp & big
+    esc_bv = torch.where(big, 255, (rem - 15).clamp(min=0))
+    u16v = torch.where(L < 0x10000, L, 0)
+    has_u32 = has_big & (L >= 0x10000)
+    tok_planes = place_monotone(
+        ~committed, off, (torch.where(committed, b0, 0),
+                          torch.where(iscp, tokv >> 8, 0)), MAXP)
+    esc_vals = (torch.where(has_esc, esc_bv, 0),
+                torch.where(has_big, u16v & 0xFF, 0),
+                torch.where(has_big, u16v >> 8, 0)) + tuple(
+        torch.where(has_u32, (L >> (8 * k)) & 0xFF, 0) for k in range(4))
+    esc_planes = place_monotone(~has_esc, esc0, esc_vals, MAXP)
+    return rolled_or(tok_planes) | rolled_or(esc_planes)
 
 
 def assemble_payload(units, best_len, best_disp, use_match, committed):
@@ -372,30 +416,13 @@ def assemble_payload(units, best_len, best_disp, use_match, committed):
     fpos1 = place_monotone(~(committed & ((t_idx & 31) == 0)), grp, off - 3,
                            NG)  # = the flag word's position + 1
 
-    # escape bytes after the token: [nibble (if it opens)] [byte | 0xFF]
-    # [u16 lo, hi] [u32 b0..b3], every one gated on the committed parse
-    esc0 = off + 2 + opens.int()
-    has_esc = iscp & (rem >= 15)
-    has_big = iscp & big
-    esc_bv = torch.where(big, 255, (rem - 15).clamp(min=0))
-    u16v = torch.where(L < 0x10000, L, 0)
-    has_u32 = has_big & (L >= 0x10000)
-
     MAXP = max_payload(n)
-    tok_planes = place_monotone(
-        ~committed, off, (torch.where(committed, b0, 0),
-                          torch.where(iscp, tokv >> 8, 0)), MAXP)
-    esc_vals = (torch.where(has_esc, esc_bv, 0),
-                torch.where(has_big, u16v & 0xFF, 0),
-                torch.where(has_big, u16v >> 8, 0)) + tuple(
-        torch.where(has_u32, (L >> (8 * k)) & 0xFF, 0) for k in range(4))
-    esc_planes = place_monotone(~has_esc, esc0, esc_vals, MAXP)
     nib_plane = place_monotone(mpos1 == 0, mpos1 - 1, nibbyte, MAXP)
     flag_planes = place_monotone(
         ~grp_exists, fpos1 - 1,
         tuple(((fv >> (8 * k)) & 0xFF).to(i32) for k in range(4)), MAXP)
-    val = (rolled_or(tok_planes) | rolled_or(esc_planes) | nib_plane
-           | rolled_or(flag_planes))
+    val = (_token_bytes(committed, iscp, off, b0, tokv, L, rem, big, opens,
+                        MAXP) | nib_plane | rolled_or(flag_planes))
     plen = torch.where(T_total > 0, 4 * ngroups + d_cum[:, -1], 0).to(i32)
     bq = torch.arange(MAXP, device=dev)[None, :]
     payload = torch.where(bq < plen[:, None], val, 0).to(torch.uint8)
@@ -418,16 +445,318 @@ def compress_units(units, unit_size=UNIT, *, device="cuda") -> list:
     return row_streams(*encode_batch(*unit_rows(units, unit_size, dev)))
 
 
+# --------------------------------------------------------------------------
+# Single-stream encode of any length
+# --------------------------------------------------------------------------
+#
+# tpucomp's ``compress_stream`` / ``_encode_stream_impl``: ONE [MS-XCA]
+# §2.3 stream for a whole buffer, cut into lanes of ``unit_size`` bytes.
+# Each lane's row is [the 8 KiB before it | its bytes], so matches reach
+# back across lane boundaries; tokens, nibble users, flag groups and bytes
+# are numbered over the whole stream by two-level cumsums (within a lane,
+# then over lanes).  Two lane scans link the lanes: a lane that ends on an
+# unpartnered nibble opener takes the next users-lane's first nibble
+# (:func:`next_from_right`), and a flag group that spans lanes gets its
+# later lanes' bits (:func:`segmented_suffix_or`).  Dispatches of at most
+# ``ENCODE_BATCH_CAP`` rows of 64 KiB carry four values on the host (the
+# token phase mod 32, the nibble parity, the last flag word's offset and a
+# pending nibble byte) and patch at most 5 bytes already written.
+
+# tpucomp's ``config.encode_batch_cap``: a dispatch takes at most this many
+# rows of 64 KiB (lanes: the byte budget over the unit, a multiple of 8)
+ENCODE_BATCH_CAP = 128
+
+
+def stream_lanes(unit_size: int) -> int:
+    """Lanes a dispatch of :func:`compress_stream` takes (tpucomp's
+    ``max(8, encode_batch_cap * 65536 // U // 8 * 8)``)."""
+    return max(8, ENCODE_BATCH_CAP * UNIT // unit_size // 8 * 8)
+
+
+def next_from_right(has: torch.Tensor, val: torch.Tensor):
+    """Over lanes: (nxt_has, nxt_val)[i] = (True, val[j]) for the smallest
+    j > i with has[j], (False, 0) where there is none (tpucomp's
+    ``_next_from_right``): a flipped ``cummin`` of the lanes that have."""
+    N = has.shape[0]
+    lane = torch.arange(N, dtype=torch.int64, device=has.device)
+    first = torch.where(has, lane, N).flip(0).cummin(0).values.flip(0)
+    nxt = torch.cat([first[1:], first.new_full((1,), N)])
+    nxt_has = nxt < N
+    nxt_val = torch.where(nxt_has, val[nxt.clamp(max=N - 1)], 0)
+    return nxt_has, nxt_val
+
+
+def segmented_suffix_or(key: torch.Tensor, contrib: torch.Tensor):
+    """Over lanes: acc[i] = the OR of contrib[j] for j >= i in the run of
+    equal keys that holds i (tpucomp's associative scan ``comb2``).  The
+    contributions of one run share no bit (each is a lane's own token
+    bits of one flag group), so the OR is a sum: the run's last inclusive
+    cumsum less the cumsum before i.  ``contrib``: int64, non-negative."""
+    seg = torch.cat([key.new_zeros(1), (key[1:] != key[:-1]).long()]).cumsum(0)
+    inc = contrib.cumsum(0)
+    run_end = torch.zeros_like(inc).scatter_reduce(0, seg, inc, "amax")
+    return run_end[seg] - (inc - contrib)
+
+
+def stream_find_matches(units, ulen, hist0, h0v: int,
+                        match: MatchFinderConfig | None = None):
+    """Match finding of one dispatch of the stream encoder (tpucomp's
+    ``_encode_stream_impl`` up to its walk), over the rows [8 KiB history |
+    lane]: lane i's history is lane i - 1's last 8 KiB, lane 0's
+    ``hist0`` (uint8 [8192]), real if ``h0v`` (else zeros before the
+    stream, which no match may reach).  Returns the walk's inputs for the
+    lanes' own columns, as :func:`find_matches`."""
+    N, n = units.shape
+    H = WINDOW
+    if units.dtype != torch.uint8 or not H <= n <= UNIT:
+        raise ValueError(f"units must be a uint8 [N, {H} <= n <= {UNIT}] "
+                         "tensor")
+    xext = torch.cat([torch.cat([hist0[None], units[:-1, -H:]]), units], 1)
+    lane = torch.arange(N, device=units.device)
+    hval = ((lane > 0) | bool(h0v))[:, None]
+    pe = torch.arange(H + n, dtype=torch.int32, device=units.device)
+    best_len, best_disp = best_candidates(
+        xext, match, WINDOW, lambda disp: hval | (pe - disp >= H))
+    return walk_inputs(best_len[:, H:], best_disp[:, H:], ulen)
+
+
+def assemble_stream(units, best_len, best_disp, use_match, committed,
+                    t0: int, k0: int):
+    """The byte assembly of one dispatch of the stream encoder, in the
+    stream's global token, nibble, group and byte coordinates (tpucomp's
+    ``_encode_stream_impl`` after its walk).  ``t0``: the stream's tokens
+    before this dispatch, mod 32; ``k0``: its nibble users', mod 2.
+
+    Returns tpucomp's nine outputs: payload (uint8 [N, max_payload(n) +
+    8], each lane's bytes from its first, 0 past plen), plen (int32 [N]),
+    and 0-d tensors Ttot, Ktot (the tokens and nibble users up to the
+    dispatch's end, t0 and k0 included), head0 (the bits of the previous
+    dispatch's open flag group, int64), lastf (the dispatch's last flag
+    word's offset, -1 for none), dangp (the offset of its unpartnered
+    nibble byte, -1 for none), fu_val and fu_has (its first nibble)."""
+    N, n = units.shape
+    dev = units.device
+    i32 = torch.int32
+    lanes = torch.arange(N, dtype=i32, device=dev)
+    iscp = committed & use_match
+    L = best_len - MIN_MATCH
+
+    # global token / nibble / byte coordinates (two-level cumsums)
+    nib_user = iscp & (L >= 7)
+    nu_inc = nib_user.cumsum(1, dtype=i32)
+    nu_tot = nu_inc[:, -1]
+    Koff = nu_tot.cumsum(0, dtype=i32) - nu_tot + k0
+    kidx = nu_inc - nib_user.int() + Koff[:, None]
+    opens = nib_user & ((kidx & 1) == 0)
+    extra, rem, big = _match_extra_sizes(L, opens)
+    tok_sz = torch.where(iscp, 2 + extra, committed.int())
+    d_cum = tok_sz.cumsum(1, dtype=i32)
+    data_before = d_cum - tok_sz
+    dt = d_cum[:, -1]
+    Doff = dt.cumsum(0, dtype=i32) - dt
+    t_after = committed.cumsum(1, dtype=i32)
+    Tl = t_after[:, -1]
+    Toff = Tl.cumsum(0, dtype=i32) - Tl + t0
+    t_g = t_after - 1 + Toff[:, None]
+    grp = t_g >> 5
+    G0w = (t0 + 31) >> 5  # flag words living in earlier dispatches
+    off_c = 4 * (grp + 1 - G0w) + data_before + Doff[:, None]
+    Bv = 4 * ((Toff >> 5) + ((Toff & 31) != 0).int() - G0w) + Doff
+    offl = off_c - Bv[:, None]
+    Ttot = Toff[-1] + Tl[-1]
+    Ktot = Koff[-1] + nu_tot[-1]
+    Bend = (4 * ((Ttot >> 5) + ((Ttot & 31) != 0).int() - G0w) + Doff[-1]
+            + dt[-1])
+    plen = torch.cat([Bv[1:], Bend[None]]) - Bv
+
+    tokv = ((best_disp - 1) << 3) | L.clamp(max=7)
+    nibval = rem.clamp(max=15)
+    b0 = torch.where(iscp, tokv & 0xFF, units.int())
+    MAXPG = max_payload(n) + 8
+
+    # nibble pairing in global pair space, localised to each lane
+    pl_pair = (kidx >> 1) - (Koff >> 1)[:, None]
+    is_part = nib_user & ~opens
+    PAIRS = n // 2 + 2
+    mlow, mpos1 = place_monotone(~opens, pl_pair, (nibval, offl + 3), PAIRS)
+    mhigh = place_monotone(~is_part, pl_pair, nibval, PAIRS)
+    nib_plane = place_monotone(mpos1 == 0, mpos1 - 1, mlow | (mhigh << 4),
+                               MAXPG)
+    # a lane ending on an unpartnered opener takes the next users-lane's
+    # first nibble into that byte's high half
+    lane_users = nu_tot > 0
+    dang_lane = lane_users & (((Koff + nu_tot - 1) & 1) == 0)
+    last_user = nib_user & (nu_inc == nu_tot[:, None])
+    dang_pos = torch.where(last_user & opens, offl + 2, 0).sum(1, dtype=i32)
+    first_user = nib_user & (nu_inc == 1)
+    fval = torch.where(first_user, nibval, 0).sum(1, dtype=i32)
+    nxt_has, nxt_val = next_from_right(lane_users, fval)
+    patch_v = torch.where(dang_lane & nxt_has, nxt_val << 4, 0)
+    dangp = torch.where(dang_lane & ~nxt_has, Bv + dang_pos, -1).max()
+    fu_val = fval[lane_users.int().argmax()]
+    fu_has = lane_users.any()
+
+    # flag words in global group space, localised to each lane; bit 31 -
+    # (t & 31) marks a match (int64: bit 31 is int32's sign bit)
+    NGL = n // 32 + 2
+    gl = grp - (Toff >> 5)[:, None]
+    one = torch.ones((), dtype=torch.int64, device=dev)
+    bits = torch.where(iscp, one << (31 - (t_g & 31)).long(), 0)
+    fb_loc = scatter_sorted_or(gl, bits, NGL)  # before a first token: -1
+    # a group that spans lanes: its later lanes' bits go to the lane that
+    # holds its flag word
+    key = torch.where(Tl > 0, Toff >> 5, (1 << 28) + lanes)
+    contrib = torch.where((Tl > 0) & ((Toff & 31) != 0), fb_loc[:, 0], 0)
+    acc = segmented_suffix_or(key, contrib)
+    accn = torch.cat([acc[1:], acc.new_zeros(1)])
+    keyn = torch.cat([key[1:], key.new_full((1,), -7)])
+    G_last = torch.where(Tl > 0, (Toff + Tl - 1) >> 5, -9)
+    incoming = torch.where(keyn == G_last, accn, 0)
+    gl_last = torch.where(Tl > 0, G_last - (Toff >> 5), -1)
+    colg = torch.arange(NGL, device=dev)[None, :]
+    fb_loc = fb_loc | torch.where(colg == gl_last[:, None], incoming[:, None],
+                                  0)
+    # bits this dispatch adds to the previous one's open group; the final
+    # word's pad bits are the host's, at the end of the stream
+    head0 = torch.where((key[0] == 0) & (t0 & 31 != 0), acc[0], 0)
+    gfirst = committed & ((t_g & 31) == 0)
+    fpos1 = place_monotone(~gfirst, gl, offl - 3, NGL)
+    flag_planes = place_monotone(
+        fpos1 == 0, fpos1 - 1,
+        tuple(((fb_loc >> (8 * k)) & 0xFF).to(i32) for k in range(4)), MAXPG)
+    lastf = torch.where(gfirst, off_c - 4, -1).max()
+
+    val = (_token_bytes(committed, iscp, offl, b0, tokv, L, rem, big, opens,
+                        MAXPG) | nib_plane | rolled_or(flag_planes))
+    at = dang_pos.long()[:, None]
+    val = val.scatter(1, at, val.gather(1, at) | patch_v[:, None])
+    bq = torch.arange(MAXPG, device=dev)[None, :]
+    payload = torch.where(bq < plen[:, None], val, 0).to(torch.uint8)
+    return (payload, plen, Ttot, Ktot, head0, lastf, dangp, fu_val, fu_has)
+
+
+def encode_stream_chunk(units, ulen, hist0, h0v: int, t0: int, k0: int,
+                        match: MatchFinderConfig | None = None):
+    """One dispatch of the stream encoder, tpucomp's
+    ``_encode_stream_impl(units, ulen, hist0, h0v, t0, k0, n)``:
+    :func:`stream_find_matches`, the greedy walk, then
+    :func:`assemble_stream`, whose nine outputs it returns.  ``units``
+    (uint8 [N, n], 8192 <= n <= 65536) are consecutive lanes of one
+    buffer, all full but the last."""
+    bl, bd, use_match, okpos = stream_find_matches(units, ulen, hist0, h0v,
+                                                   match)
+    committed = greedy_commit(use_match, bl, okpos)
+    return assemble_stream(units, bl, bd, use_match, committed, t0, k0)
+
+
+def _check_stream_unit(unit_size: int) -> None:
+    if not WINDOW <= unit_size <= UNIT:
+        raise ArgError(f"the stream encoder's unit_size must lie in "
+                       f"[{WINDOW}, {UNIT}], got {unit_size}")
+
+
+def stream_rows(buf: np.ndarray, c0: int, N: int, U: int, dev):
+    """Dispatch rows from lane ``c0`` on: the 8 KiB before it and its N
+    lanes, one upload.  Returns (units uint8 [N, U], ulen int32 [N],
+    hist0 uint8 [8192], h0v)."""
+    H = WINDOW
+    a, b = c0 * U, min(len(buf), (c0 + N) * U)
+    flat = np.zeros(H + N * U, np.uint8)
+    flat[H - min(a, H):H + b - a] = buf[max(0, a - H):b]
+    flat = torch.from_numpy(flat).to(dev)
+    lane = torch.arange(N, dtype=torch.int32, device=dev)
+    ulen = ((b - a) - lane * U).clamp(0, U).to(torch.int32)
+    return flat[H:].view(N, U), ulen, flat[:H], int(c0 > 0)
+
+
+def _fetch(chunk):
+    """The dispatch's stream bytes (each lane's first plen, in order) and
+    its seven scalars, in one copy to the host."""
+    payload, plen = chunk[:2]
+    bq = torch.arange(payload.shape[1], device=payload.device)[None, :]
+    scal = torch.stack([t.long() for t in chunk[2:]])
+    host = torch.cat([scal.view(torch.uint8),
+                      payload[bq < plen[:, None]]]).cpu().numpy()
+    return host[56:], [int(v) for v in host[:56].view(np.int64)]
+
+
+def _call(name: str, fn):
+    return fn()
+
+
+def compress_stream(data: bytes, unit_size: int = UNIT, *, device="cuda",
+                    step=_call) -> bytes:
+    """Compress ``data`` of any length into ONE [MS-XCA] §2.3 plain Xpress
+    stream, as tpucomp's ``compress_stream``: lanes of ``unit_size``
+    bytes (8192 to 65536, else :class:`ArgError`) whose matches reach
+    back 8 KiB across lane boundaries, the flag and nibble state running
+    through the whole stream.  Dispatches of :func:`stream_lanes` lanes;
+    the bytes do not depend on it.  An empty input gives ``b""``, whatever
+    ``unit_size``.
+
+    ``step(name, fn)`` runs each step of a dispatch (``fn()``) and returns
+    what it returns; a caller may pass one that times them."""
+    dev = resolve_device(device)
+    data = bytes(data)
+    if not data:  # before the unit check, as tpucomp's
+        return b""
+    _check_stream_unit(unit_size)
+    U = unit_size
+    buf = np.frombuffer(data, np.uint8)
+    lanes = -(-len(data) // U)
+    cap = stream_lanes(U)
+    out = bytearray()
+    t_phase = k_par = 0
+    pend_flag = pend_nib = None  # offsets of the last flag word, a nibble
+    for c0 in range(0, lanes, cap):
+        N = min(cap, lanes - c0)
+        units, ulen, hist0, h0v = step(
+            "rows and upload", lambda: stream_rows(buf, c0, N, U, dev))
+        found = step("finder", lambda: stream_find_matches(units, ulen,
+                                                           hist0, h0v))
+        committed = step("walk", lambda: greedy_commit(found[2], found[0],
+                                                       found[3]))
+        chunk = step("assembly", lambda: assemble_stream(
+            units, found[0], found[1], found[2], committed, t_phase, k_par))
+        del found, committed
+        got, (Ttot, Ktot, head0, lastf, dangp, fu_val, fu_has) = step(
+            "copy back", lambda: _fetch(chunk))
+        del chunk
+
+        def patch():
+            nonlocal pend_flag, pend_nib
+            base = len(out)
+            if head0 and pend_flag is not None:
+                w = int.from_bytes(out[pend_flag:pend_flag + 4], "little")
+                out[pend_flag:pend_flag + 4] = (w | head0).to_bytes(4,
+                                                                    "little")
+            if fu_has and pend_nib is not None:
+                out[pend_nib] |= (fu_val << 4) & 0xF0
+                pend_nib = None
+            out.extend(got.tobytes())
+            if lastf >= 0:
+                pend_flag = base + lastf
+            if fu_has:  # nibble users here: the parity may have flipped
+                pend_nib = base + dangp if Ktot & 1 else None
+
+        step("patches", patch)
+        t_phase, k_par = Ttot & 31, Ktot & 1
+    if t_phase and pend_flag is not None:
+        # the final flag word: its absent tokens' bits are 1s
+        w = int.from_bytes(out[pend_flag:pend_flag + 4], "little")
+        out[pend_flag:pend_flag + 4] = (w | ((1 << (32 - t_phase)) - 1)
+                                        ).to_bytes(4, "little")
+    return bytes(out)
+
+
 def compress(data: bytes, *, device="cuda") -> bytes:
-    """One-shot plain Xpress encode of at most 64 KiB, as one unit of 4,
-    16 or 64 KiB: tpucomp's ``compress`` at its default config.  Larger
-    input takes tpucomp's single-stream encoder, not ported yet."""
+    """One-shot plain Xpress encode, as tpucomp's ``compress``: at most
+    64 KiB as one unit of 4, 16 or 64 KiB; larger input as one stream
+    through :func:`compress_stream` at 64 KiB lanes."""
     data = bytes(data)
     if not data:
         return b""
     if len(data) > UNIT:
-        raise UnsupportedFormatError(
-            "compress of XPRESS input over 64 KiB (tpucomp's single-stream "
-            "encoder, compress_stream) is not ported to tpucomp_torch yet")
+        return compress_stream(data, device=device)
     return compress_units([data], unit_size=_oneshot_unit(len(data)),
                           device=device)[0]

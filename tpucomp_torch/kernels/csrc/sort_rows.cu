@@ -34,7 +34,7 @@
 // The 9-bit digits take the match finder's 25-bit hash key in 3 passes
 // (9 + 9 + 7 bits) and its 12-bit un-sort key in 2 (6 + 6).
 //
-// Wider rows, up to 65536 (sort_rows_tiled): a row's pairs do not fit a
+// Wider rows, up to 131072 (sort_rows_tiled): a row's pairs do not fit a
 // block's shared memory, so every pass goes through device memory in
 // tiles, one a block (tile / 8 threads; the wrapper picks the tile), with
 // digits of up to 8 bits: wider ones would cut a tile's output into runs
@@ -45,7 +45,10 @@
 // that the stores of one digit's run are contiguous.  Blocks take a row's
 // tiles one after another (TileOf), so that the stores in flight meet in
 // L2.  A pass reads the keys twice and the pairs once and writes the
-// pairs once, 20 B a key (12 B in pass 0).  Each row's pass count is found
+// pairs once, 20 B a key (12 B in pass 0).  The scan takes a row's tiles
+// one after another (32 at 65536, 36 at the stream encoder's 73,728, 64
+// at 131072); every index into a row is an int below 2^17, and offsets
+// into the planes and hist are size_t.  Each row's pass count is found
 // on the card, so the host launches all four passes and a pass that a row
 // does not need returns at once; a row's pairs end in the ping-pong plane
 // of its last pass.  (A thread-block cluster holding a 64 KiB row in
@@ -554,7 +557,7 @@ extern "C" int sort_rows(const void* key_in, void* key_out,
   return (int)cudaGetLastError();
 }
 
-// Rows of any width U up to 65536, in tiles of `tile` pairs (a multiple
+// Rows of any width U up to 131072, in tiles of `tile` pairs (a multiple
 // of 32 ITEMS, at most MAX_THREADS ITEMS): see the head of this file.  Scratch: pairs, int32 [4, n, U] (the two ping-pong planes'
 // keys and columns); hist, int32 [n, ceil(U / tile), 256]; diff, int32
 // [n].
@@ -562,7 +565,7 @@ extern "C" int sort_rows_tiled(const void* key_in, void* key_out, void* pairs,
                                void* hist, void* diff, const void* const* ins,
                                void* const* outs, int n, int U, int P,
                                int tile, void* stream) {
-  if (P < 0 || P > MAXP || U < 1 || U > (1 << 16) ||
+  if (P < 0 || P > MAXP || U < 1 || U > (1 << 17) ||
       tile <= 0 || tile % (32 * ITEMS) != 0 || tile > MAX_THREADS * ITEMS) {
     return (int)cudaErrorInvalidValue;
   }

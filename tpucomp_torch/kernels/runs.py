@@ -19,7 +19,9 @@ import torch
 
 from . import _build
 
-MAX_ROW = 1 << 16  # the encoders' widest row (the kernel's tiles take any)
+# the encoders' widest row, the stream encoder's [8 KiB history | 64 KiB
+# lane] of 73,728 within it (the kernel's tiles take any width)
+MAX_ROW = 1 << 17
 DISPS_PER_LAUNCH = 4  # displacements one launch takes (C int arguments)
 TILE = 4096  # positions a block of the kernel takes
 
@@ -51,7 +53,7 @@ def run_matchlens_ref(x: torch.Tensor, disps) -> list[torch.Tensor]:
 
 
 def run_matchlens(x: torch.Tensor, disps) -> list[torch.Tensor]:
-    """Run lengths of ``x`` (uint8 [N, U], contiguous, U <= 65536) against
+    """Run lengths of ``x`` (uint8 [N, U], contiguous, U <= 131072) against
     itself shifted by each d in ``disps``.  Returns one int32 [N, U]
     tensor per displacement, in the order given."""
     disps = tuple(int(d) for d in disps)

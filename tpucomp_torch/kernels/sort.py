@@ -8,8 +8,8 @@ order is the same whatever the sort.  :func:`sort_rows` launches
 CPU tensors.  The kernel is a radix sort: digit passes over the bits that
 vary in a row (:func:`digit_passes`).  Rows up to 8192 sort in one
 block's shared memory, with digits of up to 9 bits; wider rows (up to
-65536) go through device memory in tiles of ``TILE``, with digits of up
-to 8 bits, two ping-pong (key, column) planes of [N, U] and each tile's
+131072: the stream encoder's 73,728) go through device memory in tiles of
+``TILE``, with digits of up to 8 bits, two ping-pong (key, column) planes of [N, U] and each tile's
 digit counts as scratch.
 """
 
@@ -21,7 +21,7 @@ from . import _build
 
 SMEM_ROW = 1 << 13  # the widest row sorted in one block's shared memory
 TILE = 1 << 11  # (key, column) pairs of a tile in the tiled form
-MAX_ROW = 1 << 16  # the widest row the tiled form takes
+MAX_ROW = 1 << 17  # the widest row the tiled form takes
 PLANES_PER_LAUNCH = 16  # payload planes one launch takes (kernel argument)
 BLOCK_DIGIT_BITS = 9  # the widest digit of a row in one block
 TILE_DIGIT_BITS = 8  # the widest digit of a tiled row
@@ -72,7 +72,7 @@ def sort_rows(operands) -> tuple[torch.Tensor, ...]:
 
     Every plane is int32 [N, U] and contiguous; the keys of a row must be
     unique (the order of equal keys is unspecified).  On the card U is at
-    most 65536.  Returns the sorted key plane and the permuted payload
+    most 131072.  Returns the sorted key plane and the permuted payload
     planes, in the order given.
     """
     ops = tuple(operands)
