@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of tpucomp_torch on one NVIDIA GPU: LZNT1 decode, Xpress
 Huffman (XH) batched decode, LZNT1 encode, plain Xpress unit decode and
-encode, XH encode, the one-shot XH decode and plain Xpress's single-stream
-encode end to end.
+encode, XH encode, the one-shot XH decode, plain Xpress's single-stream
+encode and the dist layer end to end.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --dist-worker RANK PORT PATH`` is one rank of
+phase 16's two-rank group; phase 16 starts both.)
 
 Phases, in order; any failure ends the run with a nonzero exit code:
 
@@ -164,6 +167,36 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    KiB units; GB/s, the median of 5 after a warm-up; the host clock of
    each step of a dispatch, summed over the dispatches; peak memory; one
    call under the profiler.
+
+16. The dist layer.  First what it is held to: ``compress_batch`` of
+   the corpus's units in each format, the native C build's resolved
+   streams (each unit from a depth state zeroed by
+   :func:`literal_block`), ``ShardedCodec`` of each ``MixedBatch`` job
+   and ``compress`` of the corpus.  Then, with every launch count set to
+   0 and only the sharded path run until the counts are read: with no
+   process group (one rank), ``ShardedCodec`` of the corpus in each
+   format (LZNT1's 8208 units of 4 KiB, Xpress's and XH's 513 of 64 KiB):
+   the archive's unit streams equal to ``compress_batch``'s,
+   ``to_bytes`` / ``from_bytes`` round-tripping, ``decompress`` equal to
+   the corpus (LZNT1's payload also as one stream through the native C
+   decoder), resumed at half equal to the one-call archive; resolved
+   Xpress and XH archives (depth 2) by the port's copy of the native
+   encoder, equal to the native C build's streams, decoding back with
+   ``fast_resolve`` (``far_probe`` must launch); ``MixedBatch`` of five
+   interleaved jobs and ``ShardedLZNT1`` of the corpus; all twelve kernels
+   must have launched.  Then the first 8 MiB through a one-rank NCCL
+   group in this process (the all-gather on the card) and through two
+   worker processes in a gloo group, both on cuda:0, their archives equal
+   to the one-rank ones by sha256, with their times; GB/s of
+   ``ShardedCodec.compress`` / ``decompress`` beside ``compress_batch`` /
+   ``decompress_batch`` of the same units, the median of 5 after a
+   warm-up, in turns, and each call split on the host clock
+   (:func:`dist_split`).  Before phase 3 and at the end of phase 16, one
+   LZNT1 ``decompress`` of 8 MiB with ``trace_dir``, whose trace must
+   name the LZNT1 decode kernels, each launch with its device record.
+
+Phases 3, 9 and 13 also time ``far_level`` in runs of ``BURST`` calls
+back to back beside ``clone()`` of its plane (its ``shapes``).
 
 The last two lines are JSON: the kernels (the entries of the fill, the
 run matcher and the probes also list each shape and input under
@@ -352,10 +385,10 @@ class Native:
             fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
                            ctypes.c_int]
             fn.restype = ctypes.c_int
-        lib.xh_compress_opt.argtypes = [ctypes.c_char_p, ctypes.c_int,
-                                        ctypes.c_char_p, ctypes.c_int,
-                                        ctypes.c_int]
-        lib.xh_compress_opt.restype = ctypes.c_int
+        for fn in (lib.xh_compress_opt, lib.xpress_compress_opt):
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+                           ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_int
 
     @staticmethod
     def _call(fn, data: bytes, cap: int, *extra) -> bytes:
@@ -374,6 +407,10 @@ class Native:
     def xpress_compress(self, data: bytes) -> bytes:
         bound = len(data) + 4 * ((len(data) + 31) // 32) + 16
         return self._call(self.lib.xpress_compress, data, bound)
+
+    def xpress_compress_opt(self, data: bytes, flags: int) -> bytes:
+        bound = len(data) + 4 * (len(data) // 32 + 2) + 16
+        return self._call(self.lib.xpress_compress_opt, data, bound, flags)
 
     def xpress_decompress(self, data: bytes, out_len: int) -> bytes:
         return self._call(self.lib.xpress_decompress, data, out_len)
@@ -578,7 +615,7 @@ def burst_case(kernels, name, where, fn, ref, args, yard, yard_label,
         entry["shapes"] = []
         kernels.append(entry)
     entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
-    entry["shapes"].append({
+    entry.setdefault("shapes", []).append({
         "where": where, **(extra or {}), "ms": ms, "back_to_back_ms": b2b,
         "host_ms": host, "yardstick_ms": yard_ms, "plain_ms": plain_ms,
         "bound_ms": moved / HBM_BYTES_PER_S * 1e3})
@@ -640,6 +677,18 @@ def probe_case(kernels, where, states, rounds):
                       replaces="tpucomp/kernels/gather_pallas.py:150",
                       reps=10, extra={"shape": list(states.shape),
                                       "rounds": rounds})
+
+
+def far_level_case(kernels, where, args):
+    """:func:`burst_case` of the 4 KiB far level on ``args`` (its input
+    plane first), beside ``clone()`` of the plane.  Returns the level's
+    output."""
+    from tpucomp_torch.kernels import gather
+
+    return burst_case(kernels, "far_level", where, gather.far_level,
+                      gather.far_level_ref, args, lambda: args[0].clone(),
+                      "clone() of the plane", reps=10,
+                      extra={"shape": list(args[0].shape)})
 
 
 def sort_case(where, label, planes, reps=10, plain_reps=3):
@@ -1367,8 +1416,7 @@ def xpress_phases(dev, units, native, kernels) -> dict:
     near = entry("resolve_near", resolve.resolve_near,
                  resolve.resolve_near_ref, near_in, reps=5)
     seg_in = (near, SEG_LEVEL, SEG_LEVEL_CAP, False)
-    seg = entry("far_level (4 KiB level)", gather.far_level,
-                gather.far_level_ref, seg_in, reps=5)
+    seg = far_level_case(kernels, "Xpress, the 4 KiB level", seg_in)
     entry("far_row", gather.far_row, gather.far_row_ref, (seg,), reps=5)
     far_row_branches("Xpress shape, after the 4 KiB level", len(units))
     del parsed, parsed_ref, filled, near_in, near, seg, sub_args
@@ -1882,11 +1930,9 @@ def xh_oneshot_phases(dev, data: bytes, native, kernels) -> dict:
                         resolve.resolve_near_ref, planes)
     shape_entry(kernels, "resolve_near", where, got)
     seg_in = (got[0], SEG_LEVEL, SEG_LEVEL_CAP, False)
-    got = hold_to_plain(where, "far_level", gather.far_level,
-                        gather.far_level_ref, seg_in)
-    shape_entry(kernels, "far_level", where, got)
+    seg = far_level_case(kernels, where, seg_in)
     got = hold_to_plain(where, "far_row", gather.far_row,
-                        gather.far_row_ref, (got[0],))
+                        gather.far_row_ref, (seg,))
     shape_entry(kernels, "far_row", where, got)
     looped = gather.far_row.looped.bool()
     print(f"far_row branches ({where}): rows without err swept "
@@ -1899,7 +1945,7 @@ def xh_oneshot_phases(dev, data: bytes, native, kernels) -> dict:
     first = got[0][offs.index(0), UNIT:].to(torch.uint8).cpu().numpy()
     require(bool(ok[offs.index(0)]) and first.tobytes() == spec_data[:UNIT],
             "the speculative batch's first block differs from the input")
-    del parsed, filled, planes, got, batch, args, vb, first
+    del parsed, filled, planes, got, batch, args, vb, first, seg, seg_in
 
     # ---- 14. main path --------------------------------------------------------
     counters = launch_counters()
@@ -2086,6 +2132,481 @@ def xp_stream_phases(dev, data: bytes, native, kernels, smi: str) -> dict:
     return launches
 
 
+DIST_FORMATS = (("lznt1", 4096), ("xpress", UNIT), ("xpress_huff", UNIT))
+DIST_TWO_RANK_BYTES = 8 << 20  # the corpus prefix of the two-rank run
+DIST_REPS = 5
+# the entry of each kernel wrapper in the ``kernels`` line
+ENTRY_OF = {"fill_records_delta": "fill_records",
+            "fill_records_delta2": "fill_records",
+            "greedy_commit_layout": "greedy_commit"}
+# kernels a trace of an LZNT1 decompress must name
+TRACE_KERNELS = ("lznt1_parse_kernel", "fill_records_kernel",
+                 "resolve_near_kernel", "far_level_kernel")
+
+
+def literal_block(n: int = UNIT) -> bytes:
+    """``n`` bytes in which no 3-byte string occurs twice (the first ``n``
+    of the prefer-largest de Bruijn sequence of order 3 over bytes): every
+    encoder writes them as literals.
+
+    tpucomp's native resolved encoders (``xh_compress_opt``,
+    ``xpress_compress_opt`` with a depth bound) read the depth state of a
+    match's own positions before they write it, so a stream depends on
+    the calls before it (ROADMAP queue 3).  A resolved encode of this
+    block sets that state to zero at every position of a 64 KiB unit:
+    the next call gives the bytes of the port's copy
+    (``tpucomp_torch/native/resolved.c``), which zeroes it at every
+    call."""
+    nxt = [255] * 65536  # the next byte to try after each 2-byte string
+    out = bytearray(2)
+    while len(out) < n:
+        pair = out[-2] << 8 | out[-1]
+        require(nxt[pair] >= 0, "no literal block of this length")
+        out.append(nxt[pair])
+        nxt[pair] -= 1
+    return bytes(out[:n])
+
+
+def sha256(b: bytes) -> str:
+    return hashlib.sha256(b).hexdigest()
+
+
+def gbps(nbytes_: int, ms: list) -> str:
+    med = statistics.median(ms)
+    return f"{med:.4f} ms ({nbytes_ / med / 1e6:.4f} GB/s)"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_worker(rank: int, port: int, path: str) -> None:
+    """One rank of phase 16's two-rank gloo group, on
+    ``cuda:{LOCAL_RANK % the visible devices}`` (``cuda:0`` on one card):
+    ``ShardedCodec`` of the bytes in ``path`` in each format, decoded
+    back, then compress and decompress timed ``DIST_REPS`` times after
+    that warm-up, both ranks starting each call at a barrier.  Prints one
+    ``DIST_WORKER`` line of JSON: the archives' sha256 and the times."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from tpucomp_torch.dist import ShardedCodec, data_mesh
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=timedelta(seconds=300))
+    try:
+        mesh = data_mesh()
+        require((mesh.world_size, mesh.backend) == (2, "gloo"),
+                f"rank {rank}: not a two-rank gloo group")
+        with open(path, "rb") as f:
+            data = f.read()
+        got = {"device": str(mesh.device)}
+
+        def wall(fn) -> float:
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        for fmt, _ in DIST_FORMATS:
+            sc = ShardedCodec(fmt, mesh=mesh)
+            arch = sc.compress(data)
+            require(sc.decompress(arch) == data,
+                    f"rank {rank}: {fmt} two-rank archive does not decode")
+            got[fmt] = sha256(arch.to_bytes())
+            got[f"{fmt} compress ms"] = [
+                wall(lambda: sc.compress(data)) for _ in range(DIST_REPS)]
+            got[f"{fmt} decompress ms"] = [
+                wall(lambda: sc.decompress(arch)) for _ in range(DIST_REPS)]
+        print("DIST_WORKER " + json.dumps(got), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks(data: bytes, want: dict) -> None:
+    """Phase 16's two ranks on the one card: two worker processes of this
+    script (:func:`dist_worker`) in a gloo group, each on cuda:0; their
+    archives' sha256 must equal the one-rank ``want``.  Their times are
+    printed beside one rank's (no group, this process) on the same
+    bytes."""
+    import tempfile
+
+    import torch
+
+    from tpucomp_torch.dist import ShardedCodec, data_mesh
+
+    one = {}
+    for fmt, _ in DIST_FORMATS:
+        sc = ShardedCodec(fmt, mesh=data_mesh())
+        arch = sc.compress(data)
+        sc.decompress(arch)
+        for call, fn in (("compress", lambda: sc.compress(data)),
+                         ("decompress", lambda: sc.decompress(arch))):
+            one[fmt, call] = []
+            for _ in range(DIST_REPS):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                one[fmt, call].append((time.perf_counter() - t0) * 1e3)
+
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "data.bin")
+    with open(path, "wb") as f:
+        f.write(data)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker",
+         str(rank), str(port), path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp)
+    wall_s = time.perf_counter() - t0
+    got = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0,
+                f"two-rank worker {rank} failed:\n{out[-4000:]}")
+        line = next(l for l in out.splitlines()
+                    if l.startswith("DIST_WORKER "))
+        got.append(json.loads(line[len("DIST_WORKER "):]))
+    for rank, g in enumerate(got):
+        require(g["device"] == "cuda:0", f"rank {rank} ran on {g['device']}")
+        for fmt, _ in DIST_FORMATS:
+            require(g[fmt] == want[fmt], f"rank {rank}'s {fmt} archive "
+                    "differs from the one-rank archive")
+    print(f"two ranks (gloo, both on cuda:0), {len(data)} bytes: every "
+          f"archive equal to the one-rank archive by sha256 on both ranks; "
+          f"the two worker processes {wall_s:.2f} s from start to exit")
+    for fmt, _ in DIST_FORMATS:
+        for call in ("compress", "decompress"):
+            ms = got[0][f"{fmt} {call} ms"]
+            solo = statistics.median(one[fmt, call])
+            print(f"  two ranks {fmt} ShardedCodec.{call}, rank 0, median of "
+                  f"{DIST_REPS} after a warm-up: {gbps(len(data), ms)}; runs "
+                  f"{[round(m, 4) for m in ms]}; rank 1 median "
+                  f"{statistics.median(got[1][f'{fmt} {call} ms']):.4f} ms; "
+                  f"one rank {solo:.4f} ms (x{statistics.median(ms) / solo:.3f}"
+                  ")")
+
+
+def one_rank_nccl(data: bytes, want: dict) -> None:
+    """A one-rank NCCL group in this process: ``ShardedCodec`` round trips
+    of ``data`` in each format through the all-gather on the card, equal
+    to the archives ``want`` made with no group."""
+    import torch.distributed as dist
+
+    from tpucomp_torch.dist import ShardedCodec, data_mesh
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    gathers = []
+    real = dist.all_gather
+    dist.all_gather = lambda out, t, **kw: (gathers.append(t.device),
+                                            real(out, t, **kw))[1]
+    try:
+        mesh = data_mesh()
+        require(mesh.backend == "nccl", f"backend {mesh.backend}")
+        for fmt, _ in DIST_FORMATS:
+            sc = ShardedCodec(fmt, mesh=mesh)
+            arch = sc.compress(data)
+            require(sha256(arch.to_bytes()) == want[fmt],
+                    f"{fmt}: the one-rank NCCL archive differs")
+            require(sc.decompress(arch) == data,
+                    f"{fmt}: the one-rank NCCL archive does not decode")
+    finally:
+        dist.all_gather = real
+        dist.destroy_process_group()
+    require(len(gathers) == 4 * len(DIST_FORMATS)
+            and all(d.type == "cuda" for d in gathers),
+            f"the NCCL group's all-gathers: {gathers}")
+    print(f"one-rank NCCL group on {mesh.device}: {len(gathers)} all-gathers "
+          "of device tensors; every archive equal to the one-rank archive, "
+          "each decoding back")
+
+
+def trace_kernels(data: bytes, when: str) -> None:
+    """Phase 16's trace: ``data`` through LZNT1's ``ShardedCodec`` with one
+    rank, then one ``decompress`` with ``trace_dir``, whose one trace file
+    must name the LZNT1 decode's kernels (``TRACE_KERNELS``) with no
+    ``device_trace`` warning of a kernel launch without a device record.
+    Taken before phase 3 and again at the end of phase 16 (``when``): a
+    profiler session in a process that has run for minutes loses its
+    first device records, which ``device_trace``'s primer takes
+    (``tpucomp_torch.stats``; without it, the trace at phase 16 held no
+    device record in runs 18A and 18B)."""
+    import collections
+    import tempfile
+    import warnings
+
+    from tpucomp_torch import stats
+    from tpucomp_torch.dist import ShardedCodec, data_mesh
+
+    archive = ShardedCodec("lznt1", mesh=data_mesh()).compress(data)
+    logdir = tempfile.mkdtemp()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ShardedCodec("lznt1", mesh=data_mesh(),
+                         trace_dir=logdir).decompress(archive)
+        (name,) = os.listdir(logdir)
+        with open(os.path.join(logdir, name)) as f:
+            trace = f.read()
+    finally:
+        shutil.rmtree(logdir)
+    events = json.loads(trace)["traceEvents"]
+    (primer,) = [e for e in events if e.get("cat") == "user_annotation"
+                 and e.get("name") == stats.PRIMER]
+    after = [e for e in events if e.get("cat") == "kernel"
+             and e["ts"] >= primer["ts"] + primer["dur"]]
+    lost = [str(w.message) for w in caught
+            if str(w.message).startswith("device_trace")]
+    missing = [k for k in TRACE_KERNELS
+               if not any(k in e["name"] for e in after)]
+    if missing or lost:
+        print("trace events by category: " + str(dict(collections.Counter(
+            e.get("cat") for e in events))) + f"; {lost}")
+    require(not missing, f"the trace {when} names none of {missing}")
+    require(not lost, f"the trace {when} lost device records: {lost}")
+    print(f"trace_dir {when}: one trace of an LZNT1 ShardedCodec.decompress "
+          f"of {len(data)} bytes, {len(trace)} bytes, "
+          f"{len(after)} kernel records after the primer, naming "
+          f"{', '.join(TRACE_KERNELS)}; every launch has its device record")
+
+
+def dist_split(fmt: str, sc, data: bytes, archive) -> None:
+    """Where one rank's ``ShardedCodec`` call spends its time beside the
+    batch call it makes, on the host clock, median of ``DIST_REPS``
+    (the card synchronised around each step): ``compress`` as the batch
+    call (``_compress_units``), the unit split (the same slicing, timed
+    alone) and the rest (the manifest and the payload); ``decompress``
+    as the batch call (``_decompress_units``), ``unit_streams`` and the
+    join (each timed alone) and the rest."""
+    import torch
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    u = sc.unit_size
+    inner = []
+
+    def spy(real):
+        def call(*args, **kw):
+            ms, out = wall(lambda: real(*args, **kw))
+            inner.append((ms, out))
+            return out
+        return call
+
+    ms = {}
+    for call, name, run in (
+            ("compress", "_compress_units", lambda: sc.compress(data)),
+            ("decompress", "_decompress_units",
+             lambda: sc.decompress(archive))):
+        setattr(sc, name, spy(getattr(sc, name)))
+        try:
+            for _ in range(DIST_REPS):
+                inner.clear()
+                whole = wall(run)[0]
+                (batch, out), = inner
+                if call == "compress":
+                    alone = {"the unit split": wall(lambda: [
+                        data[i:i + u] for i in range(0, len(data), u)])[0]}
+                else:
+                    alone = {"unit_streams": wall(archive.unit_streams)[0],
+                             "the join": wall(lambda: b"".join(out))[0]}
+                steps = {"whole": whole, "the batch call": batch, **alone,
+                         "the rest": whole - batch - sum(alone.values())}
+                for k, v in steps.items():
+                    ms.setdefault((call, k), []).append(v)
+        finally:
+            delattr(sc, name)
+        print(f"  {fmt} ShardedCodec.{call}, one rank, host clock, median "
+              f"of {DIST_REPS} (ms): " + "; ".join(
+                  f"{k} {statistics.median(v):.4f}"
+                  for (c, k), v in ms.items() if c == call))
+
+
+def dist_phases(data: bytes, native, kernels, smi: str) -> dict:
+    """Phase 16, the dist layer.  Returns the launches of every kernel on
+    its main path, by ``kernels`` entry."""
+    import tpucomp_torch
+    from tpucomp_torch.dist import (Archive, MixedBatch, ShardedCodec,
+                                    ShardedLZNT1, data_mesh)
+
+    mesh = data_mesh()
+    require((mesh.world_size, mesh.backend) == (1, None),
+            "phase 16 runs with no process group first")
+    # ---- 16. what the sharded path is held to, made before its launches
+    # are counted: compress_batch of the same units, the native C build's
+    # resolved streams (each unit from a zeroed depth state, as the port's
+    # copy starts every call: literal_block), ShardedCodec of each
+    # MixedBatch job, and compress of the corpus
+    units_of, want_streams, want_resolved = {}, {}, {}
+    for fmt, u in DIST_FORMATS:
+        units_of[fmt] = [data[i:i + u] for i in range(0, len(data), u)]
+        want_streams[fmt] = tpucomp_torch.compress_batch(
+            fmt, units_of[fmt], device="cuda")
+    flags = Native.OPT_RESOLVE_OFFSETS | 2 << 8
+    zeros = literal_block()
+    for fmt, _ in DIST_FORMATS[1:]:
+        opt = (native.xh_compress_opt if fmt == "xpress_huff"
+               else native.xpress_compress_opt)
+        want_resolved[fmt] = [(opt(zeros, flags), opt(x, flags))[1]
+                              for x in units_of[fmt]]
+    M = 8 << 20
+    jobs = [("lznt1", data[:M]), ("xpress_huff", data[M:2 * M + 12345]),
+            ("xpress", data[2 * M + 12345:3 * M]), ("lznt1", data[3 * M:]),
+            ("xpress_huff", data[:5000])]
+    want_mixed = [ShardedCodec(fmt, mesh=mesh).compress(d).to_bytes()
+                  for fmt, d in jobs]
+    want_lznt1 = tpucomp_torch.compress("lznt1", data, device="cuda")
+
+    # ---- 16. one rank, the corpus in each format: the sharded path alone
+    # from here to the launch counts below
+    counters = launch_counters()
+    for fn in counters:
+        fn.launches = 0
+    archives = {}
+    for fmt, u in DIST_FORMATS:
+        units = units_of[fmt]
+        sc = ShardedCodec(fmt, mesh=mesh)
+        t0 = time.perf_counter()
+        arch = sc.compress(data)
+        enc_s = time.perf_counter() - t0
+        require(arch.unit_streams() == want_streams[fmt],
+                f"{fmt}: the archive's unit streams differ from compress_batch")
+        raw = arch.to_bytes()
+        back = Archive.from_bytes(raw)
+        require(back.to_bytes() == raw and back.manifest == arch.manifest,
+                f"{fmt}: to_bytes / from_bytes does not round-trip")
+        require(sc.decompress(back) == data, f"{fmt}: decompress differs")
+        if fmt == "lznt1":
+            require(native.lznt1_decompress(arch.payload, len(data)) == data,
+                    "the LZNT1 archive's payload does not decode as one "
+                    "stream through the native C decoder")
+        half = len(units) // 2
+        resumed = sc.compress(data, resume=sc.compress(data[:half * u]))
+        require(resumed.to_bytes() == raw,
+                f"{fmt}: the archive resumed at unit {half} differs")
+        archives[fmt] = (sc, back, units)
+        print(f"sharded {fmt}, one rank ({smi}): {len(units)} units of {u}, "
+              f"archive {len(raw)} bytes ({sc.last_stats.ratio:.6f} of the "
+              f"input), {enc_s:.2f} s the first compress; unit streams equal "
+              "to compress_batch; from_bytes round-trips; decompress equal "
+              f"to the corpus; resumed at unit {half} equal"
+              + ("; the payload decodes through the native C decoder"
+                 if fmt == "lznt1" else ""))
+    # resolved archives by the port's own encoder, depth 2
+    probes0 = next(f for f in counters if f.__name__ == "far_probe").launches
+    for fmt, u in DIST_FORMATS[1:]:
+        sc = ShardedCodec(fmt, mesh=mesh, resolve_offsets=True)
+        t0 = time.perf_counter()
+        arch = sc.compress(data)
+        enc_s = time.perf_counter() - t0
+        require(arch.manifest.resolved
+                and arch.unit_streams() == want_resolved[fmt],
+                f"{fmt}: the resolved archive differs from the native build's")
+        require(sc.decompress(Archive.from_bytes(arch.to_bytes())) == data,
+                f"{fmt}: the resolved archive does not decode")
+        print(f"sharded {fmt} resolved (depth 2): {len(arch.payload)} bytes, "
+              f"{enc_s:.2f} s to encode, equal to the native C build's "
+              "streams (each unit from a zeroed depth state), decoding back")
+    probes = next(f for f in counters if f.__name__ == "far_probe").launches
+    require(probes > probes0, "far_probe never launched on the resolved "
+            "archives")
+    # MixedBatch and ShardedLZNT1
+    mb = MixedBatch(mesh=mesh)
+    mixed = mb.compress(jobs)
+    require([a.to_bytes() for a in mixed] == want_mixed,
+            "a MixedBatch archive differs from ShardedCodec's")
+    require(mb.decompress(mixed) == [d for _, d in jobs],
+            "MixedBatch.decompress differs from the jobs")
+    sl = ShardedLZNT1(mesh)
+    stream = sl.compress(data)
+    require(stream == want_lznt1, "ShardedLZNT1.compress differs from compress")
+    require(sl.decompress(stream) == data, "ShardedLZNT1.decompress differs")
+    require(sl.decompress(stream, 100000) == data[:100000],
+            "ShardedLZNT1.decompress ignores out_len")
+    try:
+        sl.decompress(stream[:-1])
+        raised = False
+    except tpucomp_torch.DataError:
+        raised = True
+    require(raised, "a short LZNT1 stream did not raise DataError")
+    print(f"MixedBatch of {len(jobs)} jobs (LZNT1, XH, Xpress interleaved): "
+          "each archive equal to ShardedCodec's, decompress equal to the "
+          "jobs; ShardedLZNT1: equal to compress, decoding back, out_len "
+          "kept, a short stream raising DataError")
+    launches = {}
+    for fn in counters:
+        name = ENTRY_OF.get(fn.__name__, fn.__name__)
+        launches[name] = launches.get(name, 0) + fn.launches
+    print(f"sharded main path launches: {launches}")
+    for k in kernels:
+        require(launches.get(k["name"], 0) > 0,
+                f"{k['name']} never launched on the sharded path")
+
+    # ---- 16. NCCL in one rank, and two ranks on the one card ----------------
+    head = data[:DIST_TWO_RANK_BYTES]
+    want = {fmt: sha256(ShardedCodec(fmt, mesh=mesh).compress(
+        head).to_bytes()) for fmt, _ in DIST_FORMATS}
+    one_rank_nccl(head, want)
+    two_ranks(head, want)
+
+    # ---- 16. figures: the layer beside the batch calls, in turns -------------
+    for fmt, u in DIST_FORMATS:
+        sc, back, units = archives[fmt]
+        streams = back.unit_streams()
+        lens = back.manifest.unit_out_lens
+        calls = {
+            "ShardedCodec.compress": lambda: sc.compress(data),
+            "compress_batch": lambda: tpucomp_torch.compress_batch(
+                fmt, units, device="cuda"),
+            "ShardedCodec.decompress": lambda: sc.decompress(back),
+            "decompress_batch": lambda: tpucomp_torch.decompress_batch(
+                fmt, streams, lens, device="cuda")}
+        times = {label: [] for label in calls}
+        for fn in calls.values():
+            fn()  # warm-up
+        for _ in range(DIST_REPS):
+            for label, fn in calls.items():
+                times[label] += cuda_ms(fn, reps=1, warmup=0)
+        for label, ms in times.items():
+            print(f"sharded {fmt} ({smi}) {label}, one rank, median of "
+                  f"{DIST_REPS} in turns after a warm-up: "
+                  f"{gbps(len(data), ms)}; runs {[round(m, 4) for m in ms]}")
+        for call, batch in (("compress", "compress_batch"),
+                            ("decompress", "decompress_batch")):
+            diff = (statistics.median(times[f"ShardedCodec.{call}"])
+                    - statistics.median(times[batch]))
+            print(f"  the dist layer's own cost, {fmt} {call}: {diff:.4f} ms "
+                  f"over {batch}")
+        dist_split(fmt, sc, data, back)
+    trace_kernels(data[:DIST_TWO_RANK_BYTES], "at the end of phase 16")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2130,6 +2651,7 @@ def main() -> None:
     payloads, comps = lz.split_stream(stream)
     print(f"stream: {len(stream)} bytes (ratio {len(stream) / len(data)}), "
           f"{len(payloads)} chunks, {comps.count(False)} stored raw")
+    trace_kernels(data[:DIST_TWO_RANK_BYTES], "before phase 3")
 
     # ---- 3. kernel vs plain -----------------------------------------------
     payload, plen, is_comp = lz.pack_chunks(payloads, comps, dev)
@@ -2196,6 +2718,7 @@ def main() -> None:
             del planes
         kernels.append(kernel_entry(name, replaces, max_err, ms, plain_ms,
                                     moved))
+    far_level_case(kernels, "LZNT1", (near,))
     del parsed, parsed_ref, vpack, is_copy, near_in, near, near_ref, far, far_ref
 
     # ---- 4. main path ----------------------------------------------------
@@ -2293,6 +2816,10 @@ def main() -> None:
     xps_launches = xp_stream_phases(dev, data, native, kernels, smi)
     for k in kernels:
         k["launches"] = k.get("launches", 0) + xps_launches.get(k["name"], 0)
+    # ---- 16. the dist layer ------------------------------------------------
+    dist_launches = dist_phases(data, native, kernels, smi)
+    for k in kernels:
+        k["launches"] += dist_launches.get(k["name"], 0)
     require(len(kernels) == 12, f"{len(kernels)} kernels in the line, not 12")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - started:.1f} s ({smi})")
@@ -2304,4 +2831,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

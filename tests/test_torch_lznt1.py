@@ -27,6 +27,7 @@ from tpucomp.codecs import lznt1 as t_lz
 from tpucomp.codecs.lznt1_expose import decode_batch_impl
 from tpucomp.oracle import lznt1 as oracle
 from tpucomp_torch.codecs import lznt1 as lz
+from _threads import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

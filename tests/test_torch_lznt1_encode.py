@@ -26,6 +26,7 @@ from tpucomp.codecs import lznt1 as t_lz
 from tpucomp.oracle import lznt1 as oracle
 from tpucomp_torch import config
 from tpucomp_torch.codecs import lznt1 as lz
+from _threads import _one_thread  # noqa: F401
 
 CHUNK = lz.CHUNK
 

@@ -23,6 +23,7 @@ from test_torch_xh_encode import check_encode_batch
 from tpucomp.codecs import xpress_huff as t_xh
 from tpucomp.oracle import xpress_huff as oracle
 from tpucomp_torch.codecs import xpress_huff as xh
+from _threads import _one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("second", [0, 2])

@@ -34,6 +34,7 @@ from tpucomp.oracle import xpress_huff as oracle
 from tpucomp_torch.codecs import xpress_huff as xh
 from tpucomp_torch.config import MatchFinderConfig
 from tpucomp_torch.kernels import common, huffman
+from _threads import _one_thread  # noqa: F401
 
 _t_lengths = jax.jit(t_huff.huffman_code_lengths)
 

@@ -26,6 +26,7 @@ from tpucomp import _native
 from tpucomp.codecs import xpress_huff as t_xh
 from tpucomp.oracle import xpress_huff as oracle
 from tpucomp_torch.codecs import xpress_huff as xh
+from _threads import _one_thread  # noqa: F401
 
 BLOCK = xh.BLOCK
 VECTOR = os.path.join(os.path.dirname(os.path.dirname(

@@ -21,6 +21,7 @@ from tpucomp.codecs import xpress_huff as t_xh
 from tpucomp.kernels import common as t_common
 from tpucomp_torch.codecs import xpress_huff as xh
 from tpucomp_torch.kernels import common, fill, resolve
+from _threads import _one_thread  # noqa: F401
 
 
 def _periodic():

@@ -26,6 +26,7 @@ from tpucomp.kernels import xh_pallas
 from tpucomp.oracle import xpress_huff as oracle
 from tpucomp_torch.codecs import xpress_huff as xh
 from tpucomp_torch.kernels import fill, huffman, xh_parse
+from _threads import _one_thread  # noqa: F401
 
 U = 16384
 

@@ -38,6 +38,7 @@ import torch
 
 from tpucomp_torch.codecs import xpress_huff as xh
 from tpucomp_torch.kernels import huffman, xh_parse
+from _threads import _one_thread  # noqa: F401
 
 M32 = 0xFFFFFFFF
 COPY_BIT = xh_parse.COPY_BIT

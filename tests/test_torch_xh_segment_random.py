@@ -9,6 +9,7 @@ import numpy as np
 
 from test_torch_xh_segment import _hold, rows_batch
 from tpucomp_torch.codecs import xpress_huff as xh
+from _threads import _one_thread  # noqa: F401
 
 
 def test_random_unit_64k():

@@ -44,6 +44,7 @@ import pytest
 import torch
 
 from tpucomp_torch.kernels import xp_parse
+from _threads import _one_thread  # noqa: F401
 
 M32 = 0xFFFFFFFF
 MIN_MATCH = xp_parse.MIN_MATCH

@@ -16,6 +16,7 @@ from conftest import make_corpus
 from test_torch_xp_walk import (hold_to_plain, hold_to_tpucomp, literals,
                                 pack, walk_steps, write_stream)
 from tpucomp import _native
+from _threads import _one_thread  # noqa: F401
 
 U = 1 << 16
 

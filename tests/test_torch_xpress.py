@@ -26,6 +26,7 @@ from tpucomp.codecs import xpress as t_xp
 from tpucomp.errors import DataError as TDataError
 from tpucomp.oracle import xpress as oracle
 from tpucomp_torch.codecs import xpress as xp
+from _threads import _one_thread  # noqa: F401
 
 
 def _decode_rows(W):

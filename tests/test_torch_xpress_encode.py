@@ -20,6 +20,7 @@ from tpucomp.codecs import xpress as t_xp
 from tpucomp.oracle import xpress as oracle
 from tpucomp_torch.codecs import xpress as xp
 from tpucomp_torch.config import MatchFinderConfig
+from _threads import _one_thread  # noqa: F401
 
 
 def _encode_units(W):

@@ -26,18 +26,9 @@ from tpucomp.oracle import xpress as oracle
 from tpucomp_torch.codecs import xpress as xp
 from tpucomp_torch.errors import ArgError
 from tpucomp_torch.kernels.commit import greedy_commit
+from _threads import _one_thread  # noqa: F401
 
 LANE = 8192
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    # the plain versions' ops are many and small: one thread each keeps a
-    # test's time steady when test workers share the cores
-    kept = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(kept)
 
 
 @pytest.fixture(autouse=True)

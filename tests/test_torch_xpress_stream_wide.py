@@ -28,21 +28,12 @@ from tpucomp.oracle import xpress as oracle
 from tpucomp_torch.codecs import xpress as xp
 from tpucomp_torch.config import DEFAULT
 from tpucomp_torch.kernels import match, runs
+from _threads import _one_thread  # noqa: F401
 
 UNIT = xp.UNIT
 WIDE = xp.WINDOW + UNIT  # a stream row: [8 KiB history | 64 KiB lane]
 VECTOR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), XP_STREAM_VECTOR)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    # the plain versions' ops are many and small: one thread each keeps a
-    # test's time steady when test workers share the cores
-    kept = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(kept)
 
 
 @pytest.fixture(autouse=True)

@@ -7,8 +7,12 @@ by hand for Hopper (``kernels/csrc``, built by nvcc at first use into
 
 Ported so far: LZNT1 encode and decode, plain Xpress unit encode and
 decode (one-shot decode up to 64 KiB; one-shot encode of any length, one
-stream), and Xpress Huffman encode and decode (one-shot, multi-block
-streams included, and batched).
+stream), Xpress Huffman encode and decode (one-shot, multi-block
+streams included, and batched), and the dist layer
+(:mod:`tpucomp_torch.dist`: ``ShardedCodec`` archives with resume and
+the resolved profile, ``ShardedLZNT1``, ``MixedBatch``, one process per
+GPU over ``torch.distributed``) with its per-run stats
+(:mod:`tpucomp_torch.stats`).
 
     import tpucomp_torch
     stream = tpucomp_torch.compress("lznt1", data)              # on "cuda"
@@ -24,6 +28,10 @@ streams included, and batched).
     stream = tpucomp_torch.compress("xpress", data)            # any length
     stream = tpucomp_torch.compress("xpress_huff", data)       # 64 KiB blocks
     streams = tpucomp_torch.compress_batch("xpress_huff", units)
+
+    from tpucomp_torch.dist import ShardedCodec
+    archive = ShardedCodec("xpress_huff").compress(data)      # an Archive
+    data = ShardedCodec("xpress_huff").decompress(archive)
 
 On CPU tensors every kernel's plain PyTorch version runs instead.
 """

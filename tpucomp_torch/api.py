@@ -8,7 +8,10 @@ LZNT1 and plain Xpress encode and decode (one-shot and batched; Xpress
 one-shot decode up to 64 KiB, one-shot encode of any length as one
 stream), and Xpress Huffman encode and decode (one-shot, multi-block
 streams included, and batched); any other format raises
-:class:`UnsupportedFormatError`.
+:class:`UnsupportedFormatError`.  Archives of many units, sharded over
+the GPUs of a ``torch.distributed`` group (one process each), are
+:mod:`tpucomp_torch.dist`'s, as tpucomp sends device-batched work to
+``tpucomp.dist``.
 """
 
 from __future__ import annotations
