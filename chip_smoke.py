@@ -2,7 +2,7 @@
 """Smoke run of tpucomp_torch on one NVIDIA GPU: LZNT1 decode, Xpress
 Huffman (XH) batched decode, LZNT1 encode, plain Xpress unit decode and
 encode, XH encode, the one-shot XH decode, plain Xpress's single-stream
-encode and the dist layer end to end.
+encode, the dist layer and the streaming API end to end.
 
     python3 chip_smoke.py
 
@@ -194,9 +194,33 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    (:func:`dist_split`).  Before phase 3 and at the end of phase 16, one
    LZNT1 ``decompress`` of 8 MiB with ``trace_dir``, whose trace must
    name the LZNT1 decode kernels, each launch with its device record.
+17. The streaming API.  With every launch count set to 0 first (the
+   one-shot encode it is held to made before): the corpus's first 8 MiB
+   through ``Compressor("lznt1")`` on the card in seeded log-uniform
+   feeds of 1 B to 256 KiB, equal to one-shot ``compress`` on the card
+   and decoding back through the native C decoder; that stream through
+   ``Decompressor("lznt1")`` in such feeds, equal to the input;
+   ``decompress_unit`` of 16 corpus units of 64 KiB in plain Xpress and
+   XH (native C streams), equal to them; the LZNT1 kernels and the
+   unit decodes' parses, fill, near walk and both far levels must have
+   launched.  Then each direction fed beside its one-shot call on the
+   same bytes, the median of 3 in turns after a warm-up, and the cost of
+   feeding a device call; one fed decode under the profiler.  Then
+   ``backend="cpu"``: the port's native one-shot calls of the 8 MiB in
+   the three formats equal to the reference build's (``Native``), its
+   ``Compressor`` streams in ragged feeds equal to them (plain Xpress
+   may differ only across a match deferred past 1 MiB, printed) and its
+   ``Decompressor`` decoding back, with their host times; and
+   ``backend="oracle"``: 64 KiB of each format through the classes,
+   equal to the oracle's one-shot (XH with ``cross_block=True``) and
+   decoding back.
 
 Phases 3, 9 and 13 also time ``far_level`` in runs of ``BURST`` calls
 back to back beside ``clone()`` of its plane (its ``shapes``).
+Every profiler pass (:func:`profile_device`) opens its session with
+``stats.device_trace``'s primer of small kernels, left out of the busy
+time and the top ops, and warns when a launch of the call has no device
+record.
 
 The last two lines are JSON: the kernels (the entries of the fill, the
 run matcher and the probes also list each shape and input under
@@ -434,20 +458,41 @@ def profile_device(label: str, fn) -> None:
     """One call of ``fn`` under ``torch.profiler``: the call's wall time on
     the host clock (the profiler stretches it), the device's busy time
     (the union of its kernel and copy intervals), its idle share of the
-    wall, and the device ops with the most device time."""
+    wall, and the device ops with the most device time.
+
+    The session opens as ``stats.device_trace``'s does: ``PRIMER_LAUNCHES``
+    small kernels under the ``PRIMER`` annotation first (a session in a
+    process that has run for minutes loses its first device records),
+    left out of the busy time and the top ops; a warning names the
+    call's kernel launches that still have no device record
+    (``stats.lost_launches``)."""
+    import tempfile
+    import warnings
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpucomp_torch import stats
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        with record_function(stats.PRIMER):
+            x = torch.zeros(1, device="cuda")
+            for _ in range(stats.PRIMER_LAUNCHES):
+                x.add_(1)
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = prof.events()
+    primer_end = max(e.time_range.end for e in events
+                     if e.name == stats.PRIMER)
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.time_range.start >= primer_end]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     require(bool(spans), "torch.profiler recorded no device activity")
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
@@ -458,13 +503,26 @@ def profile_device(label: str, fn) -> None:
     print(f"{label} under torch.profiler: wall {wall_ms:.4f} ms, device "
           f"busy {busy_ms:.4f} ms (idle {100 * (1 - busy_ms / wall_ms):.2f}% "
           f"of the wall), first to last device event "
-          f"{(spans[-1][1] - spans[0][0]) / 1e3:.4f} ms")
-    top = sorted((e for e in prof.key_averages()
-                  if e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        print(f"  device {e.self_device_time_total / 1e3:.4f} ms in "
-              f"{e.count} calls: {e.key}")
+          f"{(spans[-1][1] - spans[0][0]) / 1e3:.4f} ms (after the "
+          f"primer's {stats.PRIMER_LAUNCHES} launches)")
+    by_name: dict = {}
+    for e in device:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        print(f"  device {us / 1e3:.4f} ms in {n} calls: {name}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            lost = stats.lost_launches(json.load(f)["traceEvents"])
+    if lost:
+        msg = (f"profile_device: {label}: {len(lost)} kernel launches have "
+               "no device record (the profiler dropped them); the busy "
+               "time above misses them")
+        print(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=2)
 
 
 def chunk_spans(stream: bytes) -> list[tuple[int, int]]:
@@ -2607,6 +2665,187 @@ def dist_phases(data: bytes, native, kernels, smi: str) -> dict:
     return launches
 
 
+STREAM_BYTES = 8 << 20  # the corpus prefix of the streaming phase
+STREAM_MAX_FEED = 256 << 10
+STREAM_UNITS = 16  # corpus units through decompress_unit, each format
+ORACLE_BYTES = 64 << 10
+ORACLE_MAX_FEED = 16 << 10
+STREAM_REPS = 3
+# the kernels of the LZNT1 streams (rows 1-3, 5 and 8-10 of PERF.md's
+# table) and of the unit-framed Xpress and XH decodes
+STREAM_LZNT1 = ("lznt1_parse", "resolve_near", "far_level", "fill_records",
+                "run_matchlens", "sort_rows", "greedy_commit")
+STREAM_UNIT = ("xh_parse", "xp_parse", "fill_records", "resolve_near",
+               "far_level", "far_row")
+
+
+def ragged_feeds(data: bytes, rng, hi: int) -> list:
+    """``data`` cut into feeds of 1 to ``hi`` bytes, their sizes drawn
+    log-uniformly from ``rng`` (most feeds short, most bytes in long
+    ones)."""
+    feeds, i = [], 0
+    while i < len(data):
+        n = int(np.exp(rng.uniform(0.0, np.log(hi + 1))))
+        feeds.append(data[i:i + max(1, min(n, hi))])
+        i += len(feeds[-1])
+    return feeds
+
+
+def streamed(obj, method: str, feeds: list) -> bytes:
+    return b"".join(getattr(obj, method)(f) for f in feeds) + obj.flush()
+
+
+def stream_phases(data: bytes, native, smi: str) -> dict:
+    """Phase 17, the streaming API.  Returns the launches of every kernel
+    on its main path, by ``kernels`` entry."""
+    import tpucomp_torch
+
+    rng = np.random.default_rng(SEED + 17)
+    head = data[:STREAM_BYTES]
+    enc_feeds = ragged_feeds(head, rng, STREAM_MAX_FEED)
+    # ---- 17. what the streams are held to, made before the counts are set
+    # to 0: the one-shot device encode, the units' native streams
+    want_enc = tpucomp_torch.compress("lznt1", head, device="cuda")
+    units = [data[i * UNIT:(i + 1) * UNIT] for i in range(STREAM_UNITS)]
+    unit_streams = {"xpress": [native.xpress_compress(u) for u in units],
+                    "xpress_huff": [native.xh_compress(u) for u in units]}
+
+    # ---- 17. the streaming main path on the card, counts from 0
+    counters = launch_counters()
+    for fn in counters:
+        fn.launches = 0
+    enc = streamed(tpucomp_torch.Compressor("lznt1"), "compress", enc_feeds)
+    dec_feeds = ragged_feeds(enc, rng, STREAM_MAX_FEED)
+    dec = streamed(tpucomp_torch.Decompressor("lznt1"), "decompress",
+                   dec_feeds)
+    unit_out = {}
+    for fmt, streams in unit_streams.items():
+        d = tpucomp_torch.Decompressor(
+            fmt, unit_out_lens=[len(u) for u in units])
+        unit_out[fmt] = [d.decompress_unit(s) for s in streams]
+    launches = {}
+    for fn in counters:
+        name = ENTRY_OF.get(fn.__name__, fn.__name__)
+        launches[name] = launches.get(name, 0) + fn.launches
+    print(f"streaming main path launches: {launches}")
+    require(enc == want_enc, "the LZNT1 Compressor's stream differs from "
+            "one-shot compress on the card")
+    require(native.lznt1_decompress(enc, len(head)) == head,
+            "the LZNT1 Compressor's stream does not decode through the "
+            "native C decoder")
+    require(dec == head, "the LZNT1 Decompressor's output differs from the "
+            "input")
+    for fmt, out in unit_out.items():
+        require(out == units, f"{fmt} decompress_unit differs from the units")
+    for name in STREAM_LZNT1 + STREAM_UNIT:
+        require(launches.get(name, 0) > 0,
+                f"{name} never launched on the streaming path")
+    print(f"streaming LZNT1 on the card: {len(head)} bytes in "
+          f"{len(enc_feeds)} feeds "
+          f"of 1 to {STREAM_MAX_FEED} bytes ({launches['greedy_commit']} "
+          f"encode batches), equal to one-shot compress and decoding back "
+          f"through the native C decoder; its {len(enc)} bytes in "
+          f"{len(dec_feeds)} feeds ({launches['lznt1_parse']} decode "
+          f"batches) through Decompressor equal to the input; "
+          f"decompress_unit of {STREAM_UNITS} corpus units of {UNIT} in "
+          "Xpress and XH equal to them")
+
+    # ---- 17. figures: each direction fed beside one-shot, in turns
+    calls = {
+        "Compressor, fed": lambda: streamed(
+            tpucomp_torch.Compressor("lznt1"), "compress", enc_feeds),
+        "compress, one-shot": lambda: tpucomp_torch.compress(
+            "lznt1", head, device="cuda"),
+        "Decompressor, fed": lambda: streamed(
+            tpucomp_torch.Decompressor("lznt1"), "decompress", dec_feeds),
+        "decompress, one-shot": lambda: tpucomp_torch.decompress(
+            "lznt1", enc, device="cuda"),
+    }
+    times = {label: [] for label in calls}
+    for fn in calls.values():
+        fn()  # warm-up
+    for _ in range(STREAM_REPS):
+        for label, fn in calls.items():
+            times[label] += cuda_ms(fn, reps=1, warmup=0)
+    for label, ms in times.items():
+        print(f"streaming lznt1 ({smi}) {label}, median of {STREAM_REPS} in "
+              f"turns after a warm-up: {gbps(len(head), ms)}; runs "
+              f"{[round(m, 4) for m in ms]}")
+    for fed, one, calls_ in (("Compressor, fed", "compress, one-shot",
+                              launches["greedy_commit"]),
+                             ("Decompressor, fed", "decompress, one-shot",
+                              launches["lznt1_parse"])):
+        diff = (statistics.median(times[fed])
+                - statistics.median(times[one]))
+        print(f"  the cost of feeding ({smi}), {fed} over {one}: "
+              f"{diff:.4f} ms, {diff / calls_:.4f} ms a device call "
+              f"({calls_} calls)")
+    profile_device(f"streaming LZNT1 Decompressor, fed ({smi})",
+                   calls["Decompressor, fed"])
+
+    # ---- 17. backend="cpu": the port's copy of the native codec
+    for fmt, comp, decomp in (
+            ("lznt1", native.lznt1_compress, native.lznt1_decompress),
+            ("xpress", native.xpress_compress, native.xpress_decompress),
+            ("xpress_huff", native.xh_compress, native.xh_decompress)):
+        ref = comp(head)
+        one = tpucomp_torch.compress(fmt, head, backend="cpu")
+        require(one == ref, f"{fmt}: the port's native one-shot encode "
+                "differs from the reference build's")
+        require(tpucomp_torch.decompress(fmt, one, len(head), backend="cpu")
+                == decomp(one, len(head)) == head,
+                f"{fmt}: the port's native one-shot decode differs")
+        feeds = ragged_feeds(head, rng, STREAM_MAX_FEED)
+        t0 = time.perf_counter()
+        s = streamed(tpucomp_torch.Compressor(fmt, backend="cpu"),
+                     "compress", feeds)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        note = "equal to the native one-shot (the port's and the reference "
+        note += "build's)"
+        if s != one:
+            at = next(i for i, (a, b) in enumerate(zip(s, one)) if a != b)
+            require(fmt == "xpress", f"{fmt}: the cpu Compressor's stream "
+                    "differs from the native one-shot")
+            note = (f"DIFFERS from the native one-shot from byte {at} (a "
+                    "match deferred past 1 MiB is emitted early)")
+        out_len = len(head) if fmt != "lznt1" else None
+        t0 = time.perf_counter()
+        back = streamed(tpucomp_torch.Decompressor(fmt, backend="cpu",
+                                                   out_len=out_len),
+                        "decompress", ragged_feeds(s, rng, STREAM_MAX_FEED))
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        require(back == head, f"{fmt}: the cpu Decompressor does not decode "
+                "back")
+        print(f"streaming {fmt} backend=cpu ({smi}, the host): {len(feeds)} "
+              f"feeds, {len(s)} bytes, {note}; decoding back; Compressor "
+              f"{enc_ms:.4f} ms ({len(head) / enc_ms / 1e3:.4f} MB/s), "
+              f"Decompressor {dec_ms:.4f} ms ({len(head) / dec_ms / 1e3:.4f} "
+              "MB/s), the host clock, one run")
+
+    # ---- 17. backend="oracle": the port's copy of the spec codecs
+    small = head[:ORACLE_BYTES]
+    for fmt, opts in (("lznt1", {}), ("xpress", {}),
+                      ("xpress_huff", {"cross_block": True})):
+        want = tpucomp_torch.compress(fmt, small, backend="oracle", **opts)
+        t0 = time.perf_counter()
+        s = streamed(tpucomp_torch.Compressor(fmt, backend="oracle"),
+                     "compress", ragged_feeds(small, rng, ORACLE_MAX_FEED))
+        out_len = len(small) if fmt != "lznt1" else None
+        back = streamed(tpucomp_torch.Decompressor(fmt, backend="oracle",
+                                                   out_len=out_len),
+                        "decompress", ragged_feeds(s, rng, ORACLE_MAX_FEED))
+        oracle_s = time.perf_counter() - t0
+        require(s == want, f"{fmt}: the oracle Compressor's stream differs "
+                "from the oracle's one-shot")
+        require(back == small, f"{fmt}: the oracle Decompressor does not "
+                "decode back")
+        print(f"streaming {fmt} backend=oracle: {len(small)} bytes in ragged "
+              f"feeds equal to the oracle's one-shot"
+              + (" (cross_block=True)" if fmt == "xpress_huff" else "")
+              + f", decoding back; {oracle_s:.2f} s on the host")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2820,6 +3059,10 @@ def main() -> None:
     dist_launches = dist_phases(data, native, kernels, smi)
     for k in kernels:
         k["launches"] += dist_launches.get(k["name"], 0)
+    # ---- 17. the streaming API ----------------------------------------------
+    stream_launches = stream_phases(data, native, smi)
+    for k in kernels:
+        k["launches"] += stream_launches.get(k["name"], 0)
     require(len(kernels) == 12, f"{len(kernels)} kernels in the line, not 12")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - started:.1f} s ({smi})")

@@ -170,6 +170,26 @@ def decompress(data: bytes, out_len=None, *, device="cuda") -> bytes:
     return result
 
 
+def decompress_chunks(chunks, *, device="cuda"):
+    """Decode complete chunks, each its 2-byte header and payload, in one
+    batch: the streaming decoder's feed.
+
+    Returns the chunks' output joined and None, or ``b""`` and the index
+    of the first malformed chunk (the streaming decoder consumes the
+    chunks up to it and raises there, as tpucomp's, which decodes a chunk
+    a call)."""
+    dev = resolve_device(device)
+    if not chunks:
+        return b"", None
+    payloads = [c[2:] for c in chunks]
+    comps = [bool(c[1] & 0x80) for c in chunks]
+    out, out_lens, err = decode_batch(*pack_chunks(payloads, comps, dev))
+    bad = err.nonzero()
+    if len(bad):
+        return b"", int(bad[0, 0])
+    return joined_output(out, out_lens), None
+
+
 def decompress_units(streams, *, device="cuda") -> list:
     """Decode independent LZNT1 unit streams in one batch.
 
