@@ -2,7 +2,8 @@
 """Smoke run of tpucomp_torch on one NVIDIA GPU: LZNT1 decode, Xpress
 Huffman (XH) batched decode, LZNT1 encode, plain Xpress unit decode and
 encode, XH encode, the one-shot XH decode, plain Xpress's single-stream
-encode, the dist layer and the streaming API end to end.
+encode, the dist layer and the streaming API end to end, then the
+decoders on mutated streams.
 
     python3 chip_smoke.py
 
@@ -214,6 +215,25 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``backend="oracle"``: 64 KiB of each format through the classes,
    equal to the oracle's one-shot (XH with ``cross_block=True``) and
    decoding back.
+18. The decoders on mutated streams.  Seeded mutants of the operators of
+   ``tests/_mutate.py`` (loaded by path; numpy only): each of the
+   corpus's LZNT1 chunks mutated once a batch, in two batches of about
+   [8208, 4616]; 19 batches of 546 mutants of the 64 KiB units' plain
+   Xpress and XH streams at [546, 65536] (of the XH batches, three of
+   resolved streams with ``fast_resolve``, so that the probes run); 64
+   mutants at the block tables of the 10-block XH stream of phase 14
+   through ``decompress``.  With every launch count set to 0 first, each
+   batch is one ``decode_batch`` on the card, and every mutant's
+   accept/reject and bytes are held to the port's native C decoder; each
+   disagreement must be one of the classes of ``_mutate.CLASSES``
+   (``_mutate.classify``), which the CPU tests
+   (``tests/test_torch_fuzz_*.py``) list.  The phase prints the mutants,
+   each side's rejects, the classes and its time.  Then each decode
+   kernel against its plain version on the same CUDA tensors, exactly:
+   both LZNT1 batches whole; the Xpress and XH parses on the rows of
+   the shortest streams (at most 32, of at most 4096 bytes) of a batch,
+   alone and as rows of the whole batch's launch; the fill, the near
+   walk, both far levels and the probes on whole batches.
 
 Phases 3, 9 and 13 also time ``far_level`` in runs of ``BURST`` calls
 back to back beside ``clone()`` of its plane (its ``shapes``).
@@ -224,7 +244,9 @@ record.
 
 The last two lines are JSON: the kernels (the entries of the fill, the
 run matcher and the probes also list each shape and input under
-``shapes``, with its back-to-back, host and yardstick times), and
+``shapes``, with its back-to-back, host and yardstick times; ``fuzz``
+is each kernel's launches in phase 18, also counted in ``launches``),
+and
 ``{"ok": true, "device":
 ...}``.  The script exits nonzero, printing neither, when CUDA is absent.
 It never imports JAX or the tpucomp package: it builds the native C codec
@@ -2846,6 +2868,326 @@ def stream_phases(data: bytes, native, smi: str) -> dict:
     return launches
 
 
+FUZZ_LZNT1_BATCHES = 2  # each the corpus's chunks, every one mutated once
+FUZZ_UNIT_BATCHES = 19  # Xpress and XH: 19 x 546 = 10,374 mutants a format
+FUZZ_ROWS = 546  # rows of an Xpress or XH batch, as phases 5 and 9
+FUZZ_RESOLVED = 3  # of the XH batches: resolved streams, fast_resolve
+FUZZ_ONESHOT = 64  # mutants of the 10-block XH stream through decompress
+FUZZ_SUB_ROWS = 32  # rows of the parses' plain sub-batch: the shortest
+FUZZ_SUB_BODY = 4096  # ... whose stream is at most this long
+FUZZ_MIN = 10_000  # mutants a format, at the least
+# the decode kernels phase 18 must launch
+FUZZ_KERNELS = ("lznt1_parse", "xp_parse", "xh_parse", "fill_records",
+                "resolve_near", "far_level", "far_probe", "far_row")
+
+
+def load_mutator():
+    """``tests/_mutate.py`` (numpy only), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "_mutate.py")
+    spec = importlib.util.spec_from_file_location("_mutate", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_outcome(fn, *args):
+    """("ok", bytes) or (the exception class's name,)."""
+    try:
+        return ("ok", bytes(fn(*args)))
+    except Exception as e:  # noqa: BLE001 - the class is the outcome
+        return (type(e).__name__,)
+
+
+class FuzzTally:
+    """Phase 18's counts of one format: mutants, each side's rejects, the
+    classes of the disagreements (``_mutate.classify``)."""
+
+    def __init__(self, M, fmt):
+        self.M, self.fmt = M, fmt
+        self.n = self.dev_rej = self.nat_rej = 0
+        self.classes: dict = {}
+        self.unlisted: list = []
+
+    def add(self, m, dev, nat, unit_size=None):
+        self.n += 1
+        self.dev_rej += dev[0] != "ok"
+        self.nat_rej += nat[0] != "ok"
+        out_len = None if self.fmt == "lznt1" else m.out_len
+        for c in self.M.classify(self.fmt, m.stream, out_len,
+                                 {"device": dev, "native": nat}, unit_size):
+            self.classes[c] = self.classes.get(c, 0) + 1
+            if c == self.M.UNLISTED:
+                self.unlisted.append((m.seed, m.index, m.op))
+
+    def line(self, label) -> str:
+        return (f"{label}: {self.n} mutants; rejected by the device path "
+                f"{self.dev_rej}, by the native C decoder {self.nat_rej}; "
+                f"disagreements by class {self.classes or 'none'}")
+
+
+def fuzz_lznt1(M, dev, stream, tally):
+    """The LZNT1 batches: every chunk of the corpus's stream mutated once
+    a batch (a chunk is a one-chunk stream, its own source), split into
+    its rows, one ``decode_batch`` a batch on the card, each mutant's
+    rows against the native C decoder.  Returns the kept batches."""
+    from tpucomp_torch import _native
+    from tpucomp_torch.codecs import lznt1 as lz
+
+    spans = chunk_spans(stream)
+    sources = [(stream[a:b], 0) for a, b in spans]
+    ops = M.OPERATORS["lznt1"]
+    kept = []
+    for b in range(FUZZ_LZNT1_BATCHES):
+        muts = [M.mutant("lznt1", sources, SEED + 18 + b, k,
+                         ops[(k + b) % len(ops)], source=k)
+                for k in range(len(sources))]
+        rows, owner, split = [], [], []
+        for i, m in enumerate(muts):
+            try:
+                pls, cps = lz.split_stream(m.stream)
+            except Exception as e:  # noqa: BLE001 - the class is the outcome
+                split.append((type(e).__name__,))
+                continue
+            split.append(None)
+            rows += list(zip(pls, cps))
+            owner += [i] * len(pls)
+        batch = lz.pack_chunks([p for p, _ in rows], [c for _, c in rows],
+                               dev)
+        out, out_len, err = lz.decode_batch(*batch)
+        out, out_len, err = (t.cpu().numpy() for t in (out, out_len, err))
+        parts: dict = {}
+        for k, i in enumerate(owner):
+            parts.setdefault(i, []).append(k)
+        for i, m in enumerate(muts):
+            ks = parts.get(i, [])
+            d = split[i] or (("DataError",) if any(err[k] for k in ks) else
+                             ("ok", b"".join(out[k, :out_len[k]].tobytes()
+                                             for k in ks)))
+            tally.add(m, d, host_outcome(_native.lznt1_decompress, m.stream,
+                                         None))
+        kept.append(batch)
+        print(f"fuzz lznt1 batch {b}: {len(muts)} mutants in "
+              f"{batch[0].shape[0]} rows of {batch[0].shape[1]}")
+    return kept
+
+
+def fuzz_units(M, fmt, dev, tally, sources, batches, fast=False):
+    """Xpress or XH batches of ``FUZZ_ROWS`` mutants of 64 KiB unit
+    streams: one ``decode_batch`` a batch on the card, each row's
+    accept/reject and bytes against the native C decoder.  A stream
+    longer than a unit's largest encoding goes through
+    ``decompress_units`` (which raises DataError before any launch).
+    Returns the kept batches' inputs."""
+    from tpucomp_torch import _native
+    from tpucomp_torch.codecs import xpress as xp
+    from tpucomp_torch.codecs import xpress_huff as xh
+
+    mod = xh if fmt == "xpress_huff" else xp
+    native_dec = (_native.xh_decompress if fmt == "xpress_huff"
+                  else _native.xpress_decompress)
+    ops = M.OPERATORS[fmt]
+    kept = []
+    for b in batches:
+        muts = [M.mutant(fmt, sources, SEED + 180 + b, k, ops[k % len(ops)],
+                         out_cap=UNIT) for k in range(FUZZ_ROWS)]
+        rows = [m for m in muts if len(m.stream) <= mod.max_payload(UNIT)]
+        batch = mod.pack_units([m.stream for m in rows],
+                               [m.out_len for m in rows], UNIT, dev)
+        if fmt == "xpress_huff":
+            out, err = mod.decode_batch(*batch, UNIT, fast_resolve=fast)
+        else:
+            out, err = mod.decode_batch(*batch, UNIT)
+        out, err = out.cpu().numpy(), err.cpu().numpy()
+        k = 0
+        for m in muts:
+            if len(m.stream) > mod.max_payload(UNIT):
+                d = host_outcome(lambda s, n: mod.decompress_units(
+                    [s], [n], UNIT, device=dev)[0], m.stream, m.out_len)
+            else:
+                d = (("DataError",) if err[k] else
+                     ("ok", out[k, :m.out_len].tobytes()))
+                k += 1
+            tally.add(m, d, host_outcome(native_dec, m.stream, m.out_len),
+                      UNIT)
+        kept.append(batch)
+    return kept
+
+
+def fuzz_shortest(plen, n=FUZZ_SUB_ROWS):
+    """Indices of up to ``n`` rows with the shortest streams, of at most
+    ``FUZZ_SUB_BODY`` bytes: the parses' plain versions loop once per
+    byte."""
+    import torch
+
+    order = torch.argsort(plen)
+    idx = order[plen[order] <= FUZZ_SUB_BODY][:n]
+    require(len(idx) > 0, "no short row for the plain parse")
+    return idx
+
+
+def hold(errs, name, label, fn, ref, args):
+    """Kernel wrapper ``fn`` against its plain version ``ref`` on
+    ``args``, exactly; its max abs error kept in ``errs[name]``.  Returns
+    the kernel's output."""
+    got = fn(*args)
+    errs[name] = max(errs.get(name, 0),
+                     compare(f"{name} (fuzz, {label})", got, ref(*args)))
+    return got
+
+
+def hold_parse(errs, name, label, fn, ref, parsed, sub, sub_args):
+    """A parse's plain version on the rows ``sub`` of a batch, against
+    the kernel on those rows alone and against the rows of the whole
+    batch's launch ``parsed``, exactly."""
+    want = ref(*sub_args)
+    errs[name] = max(
+        errs.get(name, 0),
+        compare(f"{name} (fuzz, {label}, the shortest rows)",
+                fn(*sub_args), want),
+        compare(f"{name} (fuzz, {label}, the whole batch's rows)",
+                tuple(p[sub] for p in parsed), want))
+
+
+def hold_tail(errs, label, rec_pos, rec_val, keep, fast):
+    """Xpress's and XH's decode tail on a batch's records, each kernel
+    against its plain version on the kernel's own inputs: the fill of
+    both planes, the near walk, the 4 KiB level, the probes (``fast``),
+    the row level."""
+    from tpucomp_torch.codecs import xpress_huff as xh
+    from tpucomp_torch.kernels import fill, gather, resolve
+    from tpucomp_torch.kernels.common import (ARCHIVE_PROBE_BUDGET,
+                                              SEG_LEVEL, SEG_LEVEL_CAP)
+
+    got = hold(errs, "fill_records", label, fill.fill_records_delta2,
+               fill.fill_records_delta2_ref, (rec_pos, rec_val, UNIT, keep))
+    out = hold(errs, "resolve_near", label, resolve.resolve_near,
+               resolve.resolve_near_ref, xh.near_inputs(got[0], got[1]))
+    out = hold(errs, "far_level", label, gather.far_level,
+               gather.far_level_ref, (out, SEG_LEVEL, SEG_LEVEL_CAP, False))
+    if fast:
+        out = hold(errs, "far_probe", label, gather.far_probe,
+                   gather.far_probe_ref, (out, ARCHIVE_PROBE_BUDGET))
+    hold(errs, "far_row", label, gather.far_row, gather.far_row_ref, (out,))
+
+
+def fuzz_phases(dev, data, stream, units, smi) -> tuple:
+    """Phase 18, the decoders on mutated streams.  Returns the launches
+    of every kernel on its main path (the decodes of the mutants) and
+    each decode kernel's max abs error against its plain version."""
+    import torch
+
+    from tpucomp_torch import _native
+    from tpucomp_torch.codecs import lznt1 as lz
+    from tpucomp_torch.codecs import xpress as xp
+    from tpucomp_torch.codecs import xpress_huff as xh
+    from tpucomp_torch.kernels import (fill, gather, lznt1_parse, resolve,
+                                       xh_parse, xp_parse)
+
+    started = time.perf_counter()
+    M = load_mutator()
+    rng = np.random.default_rng(SEED + 18)
+    units = xh_units(units, rng)
+    xp_sources = [(_native.xpress_compress(u), len(u)) for u in units]
+    xh_sources = [(_native.xh_compress(u), len(u)) for u in units]
+    resolved = [(_native.xh_compress_resolved(u, max_depth=2), len(u))
+                for u in units]
+    ten = data[:XH_TEN_BLOCKS]
+    ten_src = [(_native.xh_compress(ten), len(ten))]
+    print(f"fuzz sources: {len(chunk_spans(stream))} LZNT1 chunks, "
+          f"{len(units)} Xpress, XH and resolved XH units of {UNIT} bytes, "
+          f"the {len(ten)}-byte 10-block XH stream; "
+          f"{time.perf_counter() - started:.2f} s")
+
+    # ---- 18. the main path: every mutant through the decoders, counts from 0
+    tallies = {f: FuzzTally(M, f) for f in ("lznt1", "xpress", "xpress_huff")}
+    oneshot = FuzzTally(M, "xpress_huff")
+    counters = launch_counters()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    lz_kept = fuzz_lznt1(M, dev, stream, tallies["lznt1"])
+    xp_kept = fuzz_units(M, "xpress", dev, tallies["xpress"], xp_sources,
+                         range(FUZZ_UNIT_BATCHES))
+    n_plain = FUZZ_UNIT_BATCHES - FUZZ_RESOLVED
+    xh_kept = fuzz_units(M, "xpress_huff", dev, tallies["xpress_huff"],
+                         xh_sources, range(n_plain))
+    xh_fast = fuzz_units(M, "xpress_huff", dev, tallies["xpress_huff"],
+                         resolved, range(n_plain, FUZZ_UNIT_BATCHES),
+                         fast=True)
+    for k in range(FUZZ_ONESHOT):
+        m = M.mutant("xpress_huff", ten_src, SEED + 18, k, "block_edge")
+        oneshot.add(m, host_outcome(lambda s, n: xh.decompress(
+            s, n, device=dev), m.stream, m.out_len),
+            host_outcome(_native.xh_decompress, m.stream, m.out_len))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {}
+    for fn in counters:
+        name = ENTRY_OF.get(fn.__name__, fn.__name__)
+        launches[name] = launches.get(name, 0) + fn.launches
+    print(f"fuzz main path launches: {launches}")
+    for label, t in (("fuzz lznt1", tallies["lznt1"]),
+                     ("fuzz xpress", tallies["xpress"]),
+                     ("fuzz xpress_huff (of them "
+                      f"{FUZZ_RESOLVED * FUZZ_ROWS} resolved, fast_resolve)",
+                      tallies["xpress_huff"]),
+                     ("fuzz xpress_huff one-shot, 10 blocks, at the block "
+                      "tables", oneshot)):
+        print(t.line(label))
+        require(not t.unlisted, f"{label}: disagreements in no listed class "
+                f"(seed, index, operator): {t.unlisted[:10]}")
+    require(min(t.n for t in tallies.values()) >= FUZZ_MIN,
+            f"fewer than {FUZZ_MIN} mutants a format")
+    for name in FUZZ_KERNELS:
+        require(launches.get(name, 0) > 0, f"{name} never launched on the "
+                "fuzz path")
+    print(f"fuzz main path: {main_s:.2f} s on the host clock")
+
+    # ---- 18. each decode kernel against its plain version, exactly
+    t0 = time.perf_counter()
+    errs: dict = {}
+    for args in lz_kept:
+        parsed = hold(errs, "lznt1_parse", "LZNT1", lznt1_parse.lznt1_parse,
+                      lznt1_parse.lznt1_parse_ref, args)
+        vpack = hold(errs, "fill_records", "LZNT1", fill.fill_records_delta,
+                     fill.fill_records_delta_ref,
+                     (parsed[0], parsed[1], lz.CHUNK))
+        is_copy = (vpack & lznt1_parse.COPY_BIT) != 0
+        near = hold(errs, "resolve_near", "LZNT1", resolve.resolve_near,
+                    resolve.resolve_near_ref,
+                    (is_copy, vpack & (lznt1_parse.COPY_BIT - 1),
+                     torch.where(is_copy, 0, vpack & 0xFF)))
+        hold(errs, "far_level", "LZNT1", gather.far_level,
+             gather.far_level_ref, (near,))
+    # Xpress and XH: the parse on the shortest rows of a batch, alone and
+    # as rows of the whole batch's launch; the tail on the whole batch
+    payload, plen, out_len = xp_kept[0]
+    sub = fuzz_shortest(plen)
+    parsed = xp_parse.xp_parse(payload, plen, out_len, UNIT)
+    hold_parse(errs, "xp_parse", "Xpress", xp_parse.xp_parse,
+               xp_parse.xp_parse_ref, parsed, sub,
+               (payload[sub], plen[sub], out_len[sub], UNIT))
+    hold_tail(errs, "Xpress", parsed[0], parsed[1], None, False)
+    for batch, fast in ((xh_kept[0], False), (xh_fast[0], True)):
+        label = "XH" + (", resolved" if fast else "")
+        args = xh.parse_inputs(*batch)
+        sub = fuzz_shortest(batch[1])
+        parsed = xh_parse.xh_parse(*args, UNIT)
+        hold_parse(errs, "xh_parse", label, xh_parse.xh_parse,
+                   xh_parse.xh_parse_ref, parsed, sub,
+                   (*(a[sub] for a in args), UNIT))
+        hold_tail(errs, label, parsed[0], parsed[1], UNIT, fast)
+    torch.cuda.synchronize()
+    print(f"fuzz kernels against their plain versions, exactly: "
+          f"{sorted(errs)} (max abs err {max(errs.values())}); "
+          f"{time.perf_counter() - t0:.2f} s")
+    print(f"phase 18: {time.perf_counter() - started:.2f} s ({smi})")
+    return launches, errs
+
+
 def main() -> None:
     import torch
 
@@ -3063,6 +3405,12 @@ def main() -> None:
     stream_launches = stream_phases(data, native, smi)
     for k in kernels:
         k["launches"] += stream_launches.get(k["name"], 0)
+    # ---- 18. the decoders on mutated streams --------------------------------
+    fuzz_launches, fuzz_errs = fuzz_phases(dev, data, stream, units, smi)
+    for k in kernels:
+        k["fuzz"] = fuzz_launches.get(k["name"], 0)
+        k["launches"] += k["fuzz"]
+        k["max_abs_err"] = max(k["max_abs_err"], fuzz_errs.get(k["name"], 0))
     require(len(kernels) == 12, f"{len(kernels)} kernels in the line, not 12")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - started:.1f} s ({smi})")

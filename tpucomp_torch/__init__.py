@@ -17,7 +17,10 @@ GPU over ``torch.distributed``) with its per-run stats
 copy of the native C codec; ``backend="oracle"``: its copy of the
 pure-Python spec codecs).  So the port does all that tpucomp does.
 Unlike tpucomp's, whose default ``"auto"`` picks a host codec, every
-entry point defaults to ``backend="device"`` on ``device="cuda"``.
+entry point defaults to ``backend="device"`` on ``device="cuda"``.  The
+backends live in tpucomp's codec registry (:mod:`tpucomp_torch.formats`:
+``register``, ``lookup``, ``registered_formats()``), where a caller may
+add one of its own.
 
     import tpucomp_torch
     stream = tpucomp_torch.compress("lznt1", data)              # on "cuda"
@@ -58,7 +61,7 @@ from .errors import (  # noqa: F401
     Status,
     UnsupportedFormatError,
 )
-from .formats import Format  # noqa: F401
+from .formats import Format, registered_formats  # noqa: F401
 from .api import (  # noqa: F401
     Compressor,
     Decompressor,
@@ -68,5 +71,7 @@ from .api import (  # noqa: F401
     decompress_batch,
     max_compressed_size,
 )
+
+from . import _register  # noqa: F401  (populates the codec registry)
 
 __version__ = "0.1.0"

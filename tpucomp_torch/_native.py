@@ -70,6 +70,11 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
+# the C codec's status for an over-subscribed XH table (a DataError here;
+# tpucomp's copy of the C writes past its lookup table there instead)
+ERR_TABLE = -5
+
+
 def _check(rc: int) -> int:
     if rc == -3:
         raise BufError("native: output buffer too small")
@@ -133,10 +138,15 @@ def xh_decompress(data: bytes, out_len: int) -> bytes:
     return _call(_load().xh_decompress, bytes(data), out_len)
 
 
-# the one-shot calls of each format: (compress, decompress)
-CODECS = {Format.LZNT1: (lznt1_compress, lznt1_decompress),
-          Format.XPRESS: (xpress_compress, xpress_decompress),
-          Format.XPRESS_HUFF: (xh_compress, xh_decompress)}
+def register_all():
+    """Register the one-shot calls of each format as the ``"cpu"``
+    backend.  Unlike tpucomp's, this builds nothing: the library is built
+    at the first call, and a failed build raises there."""
+    from .formats import register
+
+    register(Format.LZNT1, "cpu", lznt1_compress, lznt1_decompress)
+    register(Format.XPRESS, "cpu", xpress_compress, xpress_decompress)
+    register(Format.XPRESS_HUFF, "cpu", xh_compress, xh_decompress)
 
 
 def _depth_flags(max_depth: int) -> int:

@@ -9,28 +9,36 @@ the GPUs of a ``torch.distributed`` group (one process each), are
 ``tpucomp.dist``.
 
 Backends (``backend=`` of ``compress``, ``decompress``, ``Compressor``
-and ``Decompressor``):
+and ``Decompressor``), each picked from the codec registry
+(:mod:`tpucomp_torch.formats`) by ``formats.lookup(fmt).get(backend)``,
+as tpucomp's are:
 
 * ``"device"`` (the default): the port's kernels on ``device`` (default
   ``"cuda"``; asking for CUDA where it is not available raises), tpucomp's
   ``backend="tpu"``.  Xpress one-shot decode covers streams of at most
-  64 KiB, as tpucomp's device backend does.
+  64 KiB, as tpucomp's device backend does.  ``device=`` reaches this
+  backend alone.
 * ``"cpu"``: the port's copy of the native C codec
   (:mod:`tpucomp_torch._native`), built at first use; a failed build
   raises.
 * ``"oracle"``: the port's copy of the pure-Python spec codecs
   (:mod:`tpucomp_torch.oracle`).
-* ``"auto"``: ``"cpu"``, first in tpucomp's preference order.
+* ``"auto"``: the first of ``"cpu"``, ``"oracle"`` that is registered,
+  tpucomp's preference order: ``"cpu"``.
+* any backend a caller registers with :func:`formats.register`.  The
+  LZNT1 classes use its ``compress`` / ``decompress``; the Xpress and XH
+  classes refuse it with :class:`ArgError`, as they refuse
+  ``"device"``: their window-carry engines are the host codecs'.
 
 The default differs from tpucomp's, whose ``"auto"`` picks a host codec:
 the port's entry points run on the card unless the caller asks for
-something else.  The format and the backend are dispatched explicitly;
-there is no codec registry.  Any other format or backend raises
+something else.  An unregistered format or backend raises
 :class:`UnsupportedFormatError`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 from . import formats
@@ -39,9 +47,7 @@ from .errors import ArgError, DataError, UnsupportedFormatError
 from .formats import Format
 from .util import resolve_device
 
-BACKENDS = ("device", "cpu", "oracle", "auto")
-_DEVICE_CODECS = {Format.LZNT1: lznt1, Format.XPRESS: xpress,
-                  Format.XPRESS_HUFF: xpress_huff}
+_BACKEND_PREFERENCE = ("cpu", "oracle")
 
 
 def _not_ported(fmt: Format, call: str):
@@ -51,11 +57,21 @@ def _not_ported(fmt: Format, call: str):
         "XPRESS_HUFF are ported)")
 
 
-def _resolve_backend(backend: str) -> str:
-    if backend not in BACKENDS:
-        raise UnsupportedFormatError(
-            f"no {backend!r} backend (available: {list(BACKENDS)})")
-    return "cpu" if backend == "auto" else backend
+def _lookup(fmt, call: str) -> formats.CodecEntry:
+    fmt = formats.canonical(fmt)
+    try:
+        return formats.lookup(fmt)
+    except UnsupportedFormatError:
+        raise _not_ported(fmt, call) from None
+
+
+def _resolve_backend(entry: formats.CodecEntry, backend: str) -> str:
+    if backend != "auto":
+        return backend
+    for b in _BACKEND_PREFERENCE:
+        if b in entry.backends:
+            return b
+    return next(iter(entry.backends))
 
 
 def _oracle(fmt: Format):
@@ -66,22 +82,16 @@ def _oracle(fmt: Format):
             Format.XPRESS_HUFF: oracle.xpress_huff}[fmt]
 
 
-def _codec(fmt: Format, backend: str, device, call: str):
-    """The (compress, decompress) pair of ``fmt`` on a resolved
-    ``backend``: ``compress(data, **opts)``, ``decompress(data, out_len,
-    **opts)``."""
-    if fmt not in _DEVICE_CODECS:
-        raise _not_ported(fmt, call)
-    if backend == "cpu":
-        from . import _native
-
-        return _native.CODECS[fmt]
-    if backend == "oracle":
-        return _oracle(fmt).compress, _oracle(fmt).decompress
-    mod = _DEVICE_CODECS[fmt]
-    return (lambda data, **opts: mod.compress(data, device=device, **opts),
-            lambda data, out_len, **opts: mod.decompress(
-                data, out_len, device=device, **opts))
+def _pick(entry: formats.CodecEntry, backend: str, device):
+    """The resolved backend's name and its (compress, decompress) pair:
+    ``compress(data, **opts)``, ``decompress(data, out_len, **opts)``,
+    with ``device`` bound on ``"device"``."""
+    resolved = _resolve_backend(entry, backend)
+    comp, decomp = entry.get(resolved)
+    if resolved == "device":
+        comp = functools.partial(comp, device=device)
+        decomp = functools.partial(decomp, device=device)
+    return resolved, comp, decomp
 
 
 def compress(fmt, data: bytes, *, backend: str = "device", device="cuda",
@@ -95,8 +105,7 @@ def compress(fmt, data: bytes, *, backend: str = "device", device="cuda",
     ``cross_block=True``)."""
     if data is None:
         raise ArgError("data must be bytes-like")
-    fmt = formats.canonical(fmt)
-    comp, _ = _codec(fmt, _resolve_backend(backend), device, "compress")
+    _, comp, _ = _pick(_lookup(fmt, "compress"), backend, device)
     return comp(bytes(data), **opts)
 
 
@@ -126,17 +135,14 @@ def compress_batch(fmt, units, *, unit_size: Optional[int] = None,
 
 
 def max_compressed_size(fmt, n: int) -> int:
-    """Worst-case compressed size of ``n`` bytes, as tpucomp's."""
+    """Worst-case compressed size of ``n`` bytes: the registered bound
+    (the oracle's), as tpucomp's."""
     if n < 0:
         raise ArgError("n must be non-negative")
-    fmt = formats.canonical(fmt)
-    if fmt == Format.LZNT1:
-        return lznt1.max_compressed_size(n)
-    if fmt == Format.XPRESS:
-        return xpress.max_compressed_size(n)
-    if fmt == Format.XPRESS_HUFF:
-        return xpress_huff.max_compressed_size(n)
-    raise _not_ported(fmt, "max_compressed_size")
+    entry = _lookup(fmt, "max_compressed_size")
+    if entry.max_compressed_size is None:
+        raise ArgError(f"format {entry.fmt.name} has no size bound")
+    return entry.max_compressed_size(n)
 
 
 def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,
@@ -153,8 +159,7 @@ def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,
     """
     if data is None:
         raise ArgError("data must be bytes-like")
-    fmt = formats.canonical(fmt)
-    _, decomp = _codec(fmt, _resolve_backend(backend), device, "decompress")
+    _, _, decomp = _pick(_lookup(fmt, "decompress"), backend, device)
     return decomp(bytes(data), out_len, **opts)
 
 
@@ -240,10 +245,11 @@ class Compressor:
     def __init__(self, fmt, *, backend: str = "device",
                  unit_size: Optional[int] = None, device="cuda"):
         self.fmt = formats.canonical(fmt)
-        resolved = _resolve_backend(backend)
+        entry = _lookup(self.fmt, "Compressor")
+        resolved = _resolve_backend(entry, backend)
         if resolved == "device":
             device = resolve_device(device)
-        self._compress, _ = _codec(self.fmt, resolved, device, "Compressor")
+        _, self._compress, _ = _pick(entry, resolved, device)
         self.backend = resolved
         self.unit_size = unit_size or self._UNIT[self.fmt]
         if self.fmt == Format.LZNT1 and self.unit_size % 4096 != 0:
@@ -330,11 +336,11 @@ class Decompressor:
     def __init__(self, fmt, *, backend: str = "device", out_len=None,
                  unit_out_lens=None, device="cuda"):
         self.fmt = formats.canonical(fmt)
-        resolved = _resolve_backend(backend)
+        entry = _lookup(self.fmt, "Decompressor")
+        resolved = _resolve_backend(entry, backend)
         if resolved == "device":
             device = resolve_device(device)
-        _, self._decompress = _codec(self.fmt, resolved, device,
-                                     "Decompressor")
+        _, _, self._decompress = _pick(entry, resolved, device)
         self.backend = resolved
         self.device = device
         self._buf = bytearray()

@@ -66,3 +66,16 @@ class MemError(MSCompError):
 class UnsupportedFormatError(ArgError):
     """The requested compression format is not supported."""
 
+
+STATUS_TO_ERROR = {
+    Status.DATA_ERROR: DataError,
+    Status.ARG_ERROR: ArgError,
+    Status.BUF_ERROR: BufError,
+    Status.MEM_ERROR: MemError,
+}
+
+
+def raise_for_status(status: Status, message: str = "") -> None:
+    """Raise the exception matching a non-OK status (OK/stream-end pass)."""
+    if status in STATUS_TO_ERROR:
+        raise STATUS_TO_ERROR[status](message)

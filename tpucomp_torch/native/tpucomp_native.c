@@ -5,17 +5,22 @@
  * rewrite and decode-depth model they share, rw_*), and the four
  * window-carry stream engines (xh_scomp_*, xp_scomp_*, xp_sdec_*,
  * xh_sdec_*).  The code below is tpucomp's, so that either package gives
- * the same bytes.  One change: each resolved call first sets the depth
+ * the same bytes.  Two changes.  First, each resolved call first sets the depth
  * state (R, CL) to zero.  tpucomp's resolved encoders read that state
  * inside a match's own span before they write it, so their bytes depend
  * on the calls before (uninitialised heap on the first plain Xpress
  * call).  Here a call gives the bytes tpucomp gives from a zeroed state,
  * whatever came before.  The plain encoders (flags 0) never read that
- * state, so their bytes are tpucomp's.  The port builds this file with
+ * state, so their bytes are tpucomp's.  Second, the XH decoders (one-shot
+ * and stream) return ERR_TABLE for a block whose code lengths are
+ * over-subscribed (xh_lengths_fit), where tpucomp's fill their lookup
+ * table past its end; on every other stream they give tpucomp's bytes
+ * and status.  The port builds this file with
  * the host C compiler at first use (tpucomp_torch/_native.py).
  *
  * API: each entry point returns the number of bytes written, or a
- * negative code: -1 data error, -3 output buffer too small.  The
+ * negative code: -1 data error, -3 output buffer too small, -5 an
+ * over-subscribed XH table (a data error).  The
  * encoders keep static scratch: one caller at a time.
  */
 
@@ -25,6 +30,7 @@
 
 #define ERR_DATA (-1)
 #define ERR_BUF (-3)
+#define ERR_TABLE (-5) /* an over-subscribed XH Huffman table */
 #define ERR_AGAIN (-7) /* internal: need more input (streaming) */
 
 /* Encoder option flags (the *_compress_opt entry points). */
@@ -698,6 +704,18 @@ static void xh_canonical(const uint8_t *lens, uint16_t *codes) {
         if (lens[s]) codes[s] = next[lens[s]]++;
 }
 
+/* Whether 512 code lengths form a code the 15-bit lookup table can
+ * hold: no more codes than the Kraft sum allows.  An over-subscribed
+ * table would give codes past the table's end (tpucomp's copy of this
+ * file writes past ``lut`` there); the oracle rejects such a table
+ * (``oracle/huffman.canonical_codes``). */
+static int xh_lengths_fit(const uint8_t *lens) {
+    long kraft = 0;
+    for (int s = 0; s < XH_SYMS; s++)
+        if (lens[s]) kraft += 1L << (XH_MAXLEN - lens[s]);
+    return kraft <= (1L << XH_MAXLEN);
+}
+
 /* Compress ONE <=64 KiB block (table + bitstream) into out; returns
  * bytes written.  Shared by the one-shot path and the stream
  * compressor (block-local window: identical output either way).
@@ -875,6 +893,7 @@ static inline int xh_decompress_impl(const uint8_t *in, int in_len,
             lens[2 * k + 1] = in[i + k] >> 4;
         }
         i += 256;
+        if (!xh_lengths_fit(lens)) return ERR_TABLE;
         uint16_t codes[XH_SYMS];
         xh_canonical(lens, codes);
         memset(lut, 0xFF, sizeof(lut));
@@ -1508,6 +1527,7 @@ static int xh_sd_block(const uint8_t *in, long avail, int final,
         lens[2 * k] = in[k] & 0xF;
         lens[2 * k + 1] = in[k] >> 4;
     }
+    if (!xh_lengths_fit(lens)) return ERR_TABLE;
     xh_canonical(lens, codes);
     memset(lut, 0xFF, sizeof(lut));
     for (int sx = 0; sx < XH_SYMS; sx++) {
