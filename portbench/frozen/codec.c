@@ -1,0 +1,744 @@
+/* The benchmark's frozen copy of the port's one-shot [MS-XCA] codecs in
+ * C: LZNT1 and Xpress Huffman encode and decode, with the archive
+ * profile's offset rewrite (xh_compress_opt, rw_*) that the XH encoder
+ * carries.  The benchmark makes its decode inputs with
+ * these encoders, so the streams a read cell decodes never come from
+ * the code under test, and stay the same whatever later changes make of
+ * the program.  Built with the host C compiler into portbench/.build/
+ * at first use (portbench/frozen/__init__.py).
+ *
+ * API: each entry point returns the number of bytes written, or a
+ * negative code: -1 data error, -3 output buffer too small, -5 an
+ * over-subscribed XH table (a data error).  The
+ * encoders keep static scratch: one caller at a time.
+ */
+
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+
+#define ERR_DATA (-1)
+#define ERR_BUF (-3)
+#define ERR_TABLE (-5) /* an over-subscribed XH Huffman table */
+#define ERR_AGAIN (-7) /* internal: need more input (streaming) */
+
+/* The bytes of a hash candidate taken as matching before the compare:
+ * none, so every byte of a match is compared.  Built with
+ * -DPORTBENCH_CONTROL (the control of the benchmark's write cells), the
+ * 3 hashed bytes are taken unverified, as a finder that trusts its hash
+ * takes them, and a hash collision makes a wrong match. */
+#ifdef PORTBENCH_CONTROL
+#define UNVERIFIED 3
+#else
+#define UNVERIFIED 0
+#endif
+
+/* Encoder option flags (the *_compress_opt entry points). */
+#define OPT_RESOLVE_OFFSETS 1 /* encode-time origin-ascent offset rewrite */
+
+/* Offset-rewrite parameters.  RW_NEAR mirrors the TPU decoder's
+ * in-scan resolve window (kernels/common.py RESOLVE_WINDOW): matches
+ * with d <= RW_NEAR resolve inside the decode scan, so only farther
+ * matches are rewritten (growing a near offset would ADD far tags).
+ * RW_LEVELS caps the ascent on adversarial chain topologies. */
+#define RW_NEAR 512
+#define RW_LEVELS 32
+
+/* Origin-ascent offset rewrite (valid parse choice under [MS-XCA]
+ * §2.1/§2.3: any source span with identical bytes is a legal match).
+ * ``imm[x]`` holds the EMITTED immediate source of byte x (x itself
+ * for literals).  A far match's source span ascends to its deepest
+ * contiguous ancestor level — with earlier matches already rewritten,
+ * that is an all-literal span after 1–2 hops — so a decoder's
+ * data-parallel copy resolution sees depth-1 chains: one gather round
+ * instead of log(depth) pointer-doubling rounds on the archive path.
+ * Foreign decoders are unaffected (the stream stays bit-compatible). */
+static inline int rw_ascend(const int32_t *imm, int pos, int off, int len,
+                            int winmax) {
+    if (off <= RW_NEAR || len > off) return off;
+    for (int lvl = 0; lvl < RW_LEVELS; lvl++) {
+        int s = pos - off;
+        int32_t b0 = imm[s];
+        int contig = 1;
+        for (int i = 1; i < len; i++)
+            if (imm[s + i] != b0 + i) { contig = 0; break; }
+        if (!contig || b0 == s) break;
+        int noff = pos - b0;
+        if (noff > winmax) break;
+        off = noff;
+    }
+    return off;
+}
+
+/* Decode-depth model, mirroring the TPU decoder's resolve semantics
+ * (kernels/resolve_pallas.py + kernels/common._far_rounds): copy chains
+ * confined to one RW_SEG-byte segment are resolved by the decoder's
+ * CHEAP segment-level pointer-doubling rounds (gather table = segment);
+ * only a hop that CROSSES a segment boundary costs a full-row dense
+ * round.  ``R[x]`` = dense rounds until byte x is final (0 = final
+ * after the near scan + segment level).  The in-segment chain length is
+ * tracked separately (low bits of the same byte would be overkill —
+ * the decoder's doubling resolves depth 2^cap per level, effectively
+ * unbounded for real streams). */
+#define RW_SEG_SHIFT 12 /* 4096 — kernels/common._far_rounds levels[0] */
+/* In-segment chains are resolved by the decoder's segment-level
+ * pointer DOUBLING (cond-driven: rounds run only while live in-segment
+ * chains remain, so the encoder-side cap directly sets the decoder's
+ * round count at ceil(log2(cap))).  With near-walk adoption charging
+ * same-512 hops zero links (rw_state below), tightening the cap from
+ * 48 to 8 measured +0.00% size on the 8 MB bench slice while cutting
+ * the decoder's 4 KiB level from ~6 rounds to 3 (a depth-k chain
+ * needs ceil(log2(k))+1 doubling rounds — the +1 fetches the terminus
+ * value; tightening to 4 saves no round and costs +0.07%). */
+#ifndef RW_CHAIN_CAP
+#define RW_CHAIN_CAP 8
+#endif
+/* Plain-Xpress overlap-mode chain cap.  With the decoder's OVERLAPPED
+ * segment tables every in-window hop is one cheap link, and a depth-k
+ * chain costs the (adoptive, log-depth) overlapped DOUBLING rounds
+ * ceil(log2(k))+1 dispatches — cap 32 => exactly the level's 6-round
+ * budget.  Size sweep (8 MB silesia-like): cap 8 -> +8.2%, 16 ->
+ * +4.2%, 32 -> +1.8%, 64 -> +0.6% over the unresolved stream; 32 is
+ * the <= +2% north-star point. */
+#ifndef RW_XP_CHAIN_CAP
+#define RW_XP_CHAIN_CAP 32
+#endif
+/* Near-walk granule: the decoder's Pallas near scan (resolve_pallas.py,
+ * SEG=512) walks each 512-byte segment sequentially and copies window
+ * VALUES verbatim — a hop whose source lies in the SAME 512-segment
+ * therefore ADOPTS the source's pointer state (final byte or far tag)
+ * at zero chain cost.  Charging such hops +1 chain link (the pre-r4
+ * model) over-counted the common small-offset case and shortened
+ * matches the decoder resolves for free. */
+#define RW_NEAR_SHIFT 9
+
+static inline int rw_src_fold(int pos, int off, int i) {
+    return (i < off) ? pos - off + i : pos + (i % off);
+}
+
+/* ``ov``: overlapped-table mode (plain Xpress).  The format's 8 KiB
+ * window lets the decoder gather each 4 KiB segment from an OVERLAPPED
+ * table [seg_base - ov, seg_base + S) that contains EVERY in-window
+ * source (kernels/common._far_level_overlapped), so an in-table hop is
+ * a cheap chain link (ncl) rather than a dense full-row round (nr) —
+ * only periodic-fold hops whose source falls below seg_base - ov cost
+ * a dense round.  ov == 0 selects the segment model (XH: the 64 KiB
+ * window spans the whole block, overlapping cannot cover it). */
+static inline void rw_state(const uint8_t *R, const uint8_t *CL, int srcf,
+                            int dst, int *nr, int *ncl, int ov) {
+    if ((srcf >> RW_NEAR_SHIFT) == (dst >> RW_NEAR_SHIFT)) {
+        *nr = R[srcf]; *ncl = CL[srcf]; /* near-walk adoption */
+    } else if (ov ? (srcf >= ((dst >> RW_SEG_SHIFT) << RW_SEG_SHIFT) - ov)
+                  : ((srcf >> RW_SEG_SHIFT) == (dst >> RW_SEG_SHIFT))) {
+        *nr = R[srcf]; *ncl = CL[srcf] + 1; /* in-table/in-segment link */
+    } else {
+        *nr = R[srcf] + 1; *ncl = 0; /* out of table: one dense round */
+    }
+}
+
+static inline int rw_depth_prefix(const uint8_t *R, const uint8_t *CL,
+                                  int pos, int off, int len, int D,
+                                  int ov, int clcap) {
+    for (int i = 0; i < len; i++) {
+        int srcf = rw_src_fold(pos, off, i);
+        int nr, ncl;
+        rw_state(R, CL, srcf, pos + i, &nr, &ncl, ov);
+        if (nr > D || ncl > clcap) return i;
+    }
+    return len;
+}
+
+static inline void rw_set_depth(uint8_t *R, uint8_t *CL, int pos, int off,
+                                int len, int ov) {
+    for (int i = 0; i < len; i++) {
+        int srcf = rw_src_fold(pos, off, i);
+        int nr, ncl;
+        rw_state(R, CL, srcf, pos + i, &nr, &ncl, ov);
+        R[pos + i] = (uint8_t)(nr > 15 ? 15 : nr);
+        CL[pos + i] = (uint8_t)(ncl > 255 ? 255 : ncl);
+    }
+}
+
+/* Combined rewrite step: origin ascent (bit 0) + hard decode-depth
+ * bound D = (flags >> 8) & 0xF (0 = unbounded).  May SHORTEN the match
+ * (possibly below the format minimum: caller emits a literal then).
+ * Ascent and depth-shortening interact — a shorter span can ascend
+ * farther and an ascended span is usually shallower — so alternate
+ * twice, then enforce the bound exactly. */
+static inline void rw_apply(const int32_t *imm, const uint8_t *R,
+                            const uint8_t *CL, int pos, int *off, int *len,
+                            int winmax, int flags, int ov, int clcap) {
+    int D = (flags >> 8) & 0xF;
+    for (int pass = 0; pass < 2; pass++) {
+        if (flags & OPT_RESOLVE_OFFSETS)
+            *off = rw_ascend(imm, pos, *off, *len, winmax);
+        if (!D) return;
+        int ul = rw_depth_prefix(R, CL, pos, *off, *len, D, ov, clcap);
+        if (ul == *len) return;
+        *len = ul;
+        if (*len < 3) return;
+    }
+    *len = rw_depth_prefix(R, CL, pos, *off, *len, D, ov, clcap);
+}
+
+/* ================= LZNT1 ([MS-XCA] 2.5) ================= */
+
+#define LZ_CHUNK 4096
+#define LZ_HASH_BITS 12
+#define LZ_HASH_SIZE (1 << LZ_HASH_BITS)
+#define LZ_DEPTH 48
+
+static inline uint32_t hash3(const uint8_t *p) {
+    uint32_t v = (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16);
+    return (v * 0x9E3779B1u) >> (32 - LZ_HASH_BITS);
+}
+
+static inline void lznt1_split(int pos, int *d_shift) {
+    int s = 0, q = pos - 1;
+    while (q >= 0x10) { s++; q >>= 1; }
+    *d_shift = 12 - s;
+}
+
+static int lznt1_compress_chunk(const uint8_t *in, int n, uint8_t *out, int cap) {
+    int16_t head[LZ_HASH_SIZE];
+    int16_t prev[LZ_CHUNK];
+    memset(head, -1, sizeof(head));
+    int o = 0, pos = 0;
+    while (pos < n) {
+        if (o >= cap) return ERR_BUF;
+        int flag_pos = o++;
+        uint8_t flag = 0;
+        for (int bit = 0; bit < 8 && pos < n; bit++) {
+            int d_shift;
+            lznt1_split(pos, &d_shift);
+            int l_mask = (1 << d_shift) - 1;
+            int max_len = l_mask + 3;
+            if (max_len > n - pos) max_len = n - pos;
+            int best_len = 0, best_disp = 0;
+            if (pos + 3 <= n) {
+                uint32_t h = hash3(in + pos);
+                int cand = head[h];
+                int depth = 0;
+                while (cand >= 0 && depth++ < LZ_DEPTH) {
+                    int len = UNVERIFIED;
+                    while (len < max_len && in[cand + len] == in[pos + len]) len++;
+                    if (len > best_len) {
+                        best_len = len;
+                        best_disp = pos - cand;
+                        if (len >= max_len) break;
+                    }
+                    cand = prev[cand];
+                }
+            }
+            if (best_len >= 3) {
+                if (o + 2 > cap) return ERR_BUF;
+                uint16_t tok = (uint16_t)(((best_disp - 1) << d_shift) | (best_len - 3));
+                out[o++] = (uint8_t)tok;
+                out[o++] = (uint8_t)(tok >> 8);
+                flag |= (uint8_t)(1 << bit);
+                int next = pos + best_len;
+                int hash_end = next < n - 2 ? next : n - 2;
+                for (; pos < hash_end; pos++) {
+                    uint32_t h = hash3(in + pos);
+                    prev[pos] = head[h];
+                    head[h] = (int16_t)pos;
+                }
+                pos = next;
+            } else {
+                if (o >= cap) return ERR_BUF;
+                if (pos + 3 <= n) {
+                    uint32_t h = hash3(in + pos);
+                    prev[pos] = head[h];
+                    head[h] = (int16_t)pos;
+                }
+                out[o++] = in[pos++];
+            }
+        }
+        out[flag_pos] = flag;
+    }
+    return o;
+}
+
+int lznt1_compress(const uint8_t *in, int in_len, uint8_t *out, int cap) {
+    int o = 0;
+    for (int start = 0; start < in_len; start += LZ_CHUNK) {
+        int n = in_len - start;
+        if (n > LZ_CHUNK) n = LZ_CHUNK;
+        if (o + 2 > cap) return ERR_BUF;
+        uint8_t tmp[LZ_CHUNK + LZ_CHUNK / 8 + 16];
+        int c = lznt1_compress_chunk(in + start, n, tmp, (int)sizeof(tmp));
+        if (c < 0 && c != ERR_BUF) return c;
+        if (c > 0 && c < n) {
+            uint16_t hdr = (uint16_t)(0xB000 | (c - 1));
+            out[o++] = (uint8_t)hdr;
+            out[o++] = (uint8_t)(hdr >> 8);
+            if (o + c > cap) return ERR_BUF;
+            memcpy(out + o, tmp, (size_t)c);
+            o += c;
+        } else {
+            uint16_t hdr = (uint16_t)(0x3000 | (n - 1));
+            out[o++] = (uint8_t)hdr;
+            out[o++] = (uint8_t)(hdr >> 8);
+            if (o + n > cap) return ERR_BUF;
+            memcpy(out + o, in + start, (size_t)n);
+            o += n;
+        }
+    }
+    return o;
+}
+
+int lznt1_decompress(const uint8_t *in, int in_len, uint8_t *out, int cap) {
+    int i = 0, o = 0;
+    while (i + 2 <= in_len) {
+        uint16_t hdr = (uint16_t)(in[i] | (in[i + 1] << 8));
+        i += 2;
+        if (hdr == 0) break;
+        int size = (hdr & 0xFFF) + 1;
+        if (i + size > in_len) return ERR_DATA;
+        int chunk_start = o;
+        if (!(hdr & 0x8000)) {
+            if (o + size > cap) return ERR_BUF;
+            memcpy(out + o, in + i, (size_t)size);
+            o += size;
+            i += size;
+        } else {
+            int end = i + size;
+            while (i < end) {
+                uint8_t flags = in[i++];
+                for (int bit = 0; bit < 8 && i < end; bit++) {
+                    if (flags & (1 << bit)) {
+                        if (i + 2 > end) return ERR_DATA;
+                        uint16_t tok = (uint16_t)(in[i] | (in[i + 1] << 8));
+                        i += 2;
+                        int p = o - chunk_start;
+                        int d_shift;
+                        lznt1_split(p, &d_shift);
+                        int len = (tok & ((1 << d_shift) - 1)) + 3;
+                        int disp = (tok >> d_shift) + 1;
+                        if (disp > p || p + len > LZ_CHUNK) return ERR_DATA;
+                        if (o + len > cap) return ERR_BUF;
+                        for (int k = 0; k < len; k++, o++) out[o] = out[o - disp];
+                    } else {
+                        if (o >= cap) return ERR_BUF;
+                        out[o++] = in[i++];
+                    }
+                }
+            }
+            if (o - chunk_start > LZ_CHUNK) return ERR_DATA;
+        }
+    }
+    return o;
+}
+
+/* ====== The match finder constants Xpress Huffman shares ====== */
+
+#define XP_HASH_BITS 14
+#define XP_HASH_SIZE (1 << XP_HASH_BITS)
+#define XP_DEPTH 48
+
+static inline uint32_t xp_hash3(const uint8_t *p) {
+    uint32_t v = (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16);
+    return (v * 0x9E3779B1u) >> (32 - XP_HASH_BITS);
+}
+
+/* ============ Xpress Huffman ([MS-XCA] 2.1-2.2) ============ */
+
+#define XH_BLOCK 65536
+#define XH_SYMS 512
+#define XH_MAXLEN 15
+
+typedef struct {
+    uint8_t *out;
+    int cap, o;
+    uint32_t bitbuf;
+    int bitcount;
+    int slot0, slot1;
+} xh_writer;
+
+static int xhw_init(xh_writer *w, uint8_t *out, int cap, int o) {
+    w->out = out; w->cap = cap; w->o = o;
+    w->bitbuf = 0; w->bitcount = 0;
+    if (o + 4 > cap) return ERR_BUF;
+    w->slot0 = o; w->slot1 = o + 2;
+    w->out[o] = w->out[o+1] = w->out[o+2] = w->out[o+3] = 0;
+    w->o = o + 4;
+    return 0;
+}
+
+static int xhw_bits(xh_writer *w, uint32_t val, int nbits) {
+    if (!nbits) return 0;
+    w->bitbuf = (w->bitbuf << nbits) | (val & ((1u << nbits) - 1));
+    w->bitcount += nbits;
+    while (w->bitcount > 16) {
+        w->bitcount -= 16;
+        uint16_t word = (uint16_t)(w->bitbuf >> w->bitcount);
+        w->out[w->slot0] = (uint8_t)word;
+        w->out[w->slot0 + 1] = (uint8_t)(word >> 8);
+        w->slot0 = w->slot1;
+        if (w->o + 2 > w->cap) return ERR_BUF;
+        w->slot1 = w->o;
+        w->out[w->o] = w->out[w->o + 1] = 0;
+        w->o += 2;
+    }
+    return 0;
+}
+
+static void xhw_flush(xh_writer *w) {
+    if (w->bitcount) {
+        uint16_t word = (uint16_t)((w->bitbuf << (16 - w->bitcount)) & 0xFFFF);
+        w->out[w->slot0] = (uint8_t)word;
+        w->out[w->slot0 + 1] = (uint8_t)(word >> 8);
+    }
+}
+
+/* two-queue Huffman + 15-bit repair + canonical codes */
+static void xh_build_lengths(const uint32_t *freq, uint8_t *lens) {
+    int order[XH_SYMS];
+    uint32_t f[XH_SYMS];
+    int n = 0;
+    for (int s = 0; s < XH_SYMS; s++) {
+        lens[s] = 0;
+        if (freq[s]) { order[n] = s; f[n] = freq[s]; n++; }
+    }
+    if (n == 0) return;
+    if (n == 1) { lens[order[0]] = 1; return; }
+    /* sort leaves by (freq, sym) — insertion sort is fine at 512 */
+    for (int a = 1; a < n; a++) {
+        int s = order[a]; uint32_t fa = f[a];
+        int b = a - 1;
+        while (b >= 0 && (f[b] > fa)) { f[b+1] = f[b]; order[b+1] = order[b]; b--; }
+        f[b+1] = fa; order[b+1] = s;
+    }
+    /* two-queue merge recording parents */
+    uint32_t nodef[XH_SYMS];
+    int leaf_parent[XH_SYMS], node_parent[XH_SYMS];
+    int lp = 0, nh = 0, created = 0;
+    while (created < n - 1) {
+        int take_leaf1 = (nh >= created) || (lp < n && f[lp] <= nodef[nh]);
+        uint32_t c1; int t1l = take_leaf1, i1 = take_leaf1 ? lp : nh;
+        if (take_leaf1) c1 = f[lp++]; else c1 = nodef[nh++];
+        int take_leaf2 = (nh >= created) || (lp < n && f[lp] <= nodef[nh]);
+        if (lp >= n) take_leaf2 = 0;
+        uint32_t c2; int t2l = take_leaf2, i2 = take_leaf2 ? lp : nh;
+        if (take_leaf2) c2 = f[lp++]; else c2 = nodef[nh++];
+        nodef[created] = c1 + c2;
+        if (t1l) leaf_parent[i1] = created; else node_parent[i1] = created;
+        if (t2l) leaf_parent[i2] = created; else node_parent[i2] = created;
+        created++;
+    }
+    int node_depth[XH_SYMS];
+    node_depth[created - 1] = 0;
+    for (int s = created - 2; s >= 0; s--)
+        node_depth[s] = node_depth[node_parent[s]] + 1;
+    /* depth profile with 15-bit clamp + kraft repair */
+    int cnt[XH_MAXLEN + 2];
+    memset(cnt, 0, sizeof(cnt));
+    for (int k = 0; k < n; k++) {
+        int d = node_depth[leaf_parent[k]] + 1;
+        if (d > XH_MAXLEN) d = XH_MAXLEN;
+        cnt[d]++;
+    }
+    long kraft = 0;
+    for (int l = 1; l <= XH_MAXLEN; l++) kraft += (long)cnt[l] << (XH_MAXLEN - l);
+    while (kraft > (1L << XH_MAXLEN)) {
+        for (int l = XH_MAXLEN - 1; l >= 1; l--) {
+            if (cnt[l] > 0) {
+                cnt[l]--; cnt[l + 1]++;
+                kraft -= 1L << (XH_MAXLEN - 1 - l);
+                break;
+            }
+        }
+    }
+    /* assign: longest codes to smallest-freq leaves (sorted order) */
+    int k = 0;
+    for (int l = XH_MAXLEN; l >= 1; l--)
+        for (int c = 0; c < cnt[l]; c++) lens[order[k++]] = (uint8_t)l;
+}
+
+static void xh_canonical(const uint8_t *lens, uint16_t *codes) {
+    int cnt[XH_MAXLEN + 1];
+    memset(cnt, 0, sizeof(cnt));
+    for (int s = 0; s < XH_SYMS; s++) if (lens[s]) cnt[lens[s]]++;
+    uint16_t first[XH_MAXLEN + 1];
+    uint16_t code = 0;
+    for (int l = 1; l <= XH_MAXLEN; l++) {
+        first[l] = code;
+        code = (uint16_t)((code + cnt[l]) << 1);
+    }
+    uint16_t next[XH_MAXLEN + 1];
+    memcpy(next, first, sizeof(next));
+    for (int s = 0; s < XH_SYMS; s++)
+        if (lens[s]) codes[s] = next[lens[s]]++;
+}
+
+/* Whether 512 code lengths form a code the 15-bit lookup table can
+ * hold: no more codes than the Kraft sum allows.  An over-subscribed
+ * table would give codes past the table's end (tpucomp's copy of this
+ * file writes past ``lut`` there); the oracle rejects such a table
+ * (``oracle/huffman.canonical_codes``). */
+static int xh_lengths_fit(const uint8_t *lens) {
+    long kraft = 0;
+    for (int s = 0; s < XH_SYMS; s++)
+        if (lens[s]) kraft += 1L << (XH_MAXLEN - lens[s]);
+    return kraft <= (1L << XH_MAXLEN);
+}
+
+/* Compress ONE <=64 KiB block (table + bitstream) into out; returns
+ * bytes written.  Shared by the one-shot path and the stream
+ * compressor (block-local window: identical output either way).
+ * ``clear``: set the depth state to zero first (a call's first block). */
+static int xh_compress_block(const uint8_t *blk, int n, uint8_t *out, int cap,
+                             int flags, int clear) {
+    static int32_t head[XP_HASH_SIZE];
+    static int32_t prev_buf[XH_BLOCK];
+    static int32_t imm_buf[XH_BLOCK];
+    static uint8_t R_buf[XH_BLOCK];
+    static uint8_t CL_buf[XH_BLOCK];
+    static int32_t tok_pos[XH_BLOCK];
+    static int32_t tok_len[XH_BLOCK];
+    static int32_t tok_off[XH_BLOCK];
+    int o = 0;
+    if (clear) { /* a call's first block: zeroed depth state */
+        memset(R_buf, 0, sizeof(R_buf));
+        memset(CL_buf, 0, sizeof(CL_buf));
+    }
+    {
+        memset(head, -1, sizeof(head));
+        /* parse */
+        int T = 0, pos = 0;
+        uint32_t freq[XH_SYMS];
+        memset(freq, 0, sizeof(freq));
+        int bounded = (flags >> 8) & 0xF;
+        while (pos < n) {
+            int best_len = 0, best_off = 0;
+            if (pos + 3 <= n) {
+                uint32_t h = xp_hash3(blk + pos);
+                int cand = head[h];
+                int depth = 0;
+                while (cand >= 0 && depth++ < XP_DEPTH) {
+                    int lim = n - pos;
+                    int len = UNVERIFIED;
+                    while (len < lim && blk[cand + len] == blk[pos + len]) len++;
+                    if (bounded) {
+                        /* depth-aware selection: score each candidate
+                         * by its USABLE length after ascent + depth
+                         * bound — a shallower source often beats a
+                         * longer-but-deep one under the bound */
+                        if (len >= 3) {
+                            int off_c = pos - cand, len_c = len;
+                            rw_apply(imm_buf, R_buf, CL_buf, pos, &off_c,
+                                     &len_c, n - 1, flags, 0,
+                                     RW_CHAIN_CAP);
+                            if (len_c > best_len) {
+                                best_len = len_c; best_off = off_c;
+                                if (best_len >= lim) break;
+                            }
+                        }
+                    } else if (len > best_len) {
+                        best_len = len; best_off = pos - cand;
+                        if (len >= lim) break;
+                    }
+                    cand = prev_buf[cand];
+                }
+            }
+            if (best_len >= 3 && flags && !bounded)
+                rw_apply(imm_buf, R_buf, CL_buf, pos, &best_off, &best_len,
+                         n - 1, flags, 0, RW_CHAIN_CAP);
+            if (best_len >= 3) {
+                if (flags) {
+                    for (int i = 0; i < best_len; i++)
+                        imm_buf[pos + i] = pos - best_off + i;
+                    rw_set_depth(R_buf, CL_buf, pos, best_off, best_len,
+                                 0);
+                }
+                tok_pos[T] = pos; tok_len[T] = best_len; tok_off[T] = best_off; T++;
+                int L = best_len - 3;
+                int obc = 0; while ((1 << (obc + 1)) <= best_off) obc++;
+                int lh = L < 15 ? L : 15;
+                freq[256 + ((obc << 4) | lh)]++;
+                int end = pos + best_len;
+                int he = end < n - 2 ? end : n - 2;
+                for (; pos < he; pos++) {
+                    uint32_t h = xp_hash3(blk + pos);
+                    prev_buf[pos] = head[h];
+                    head[h] = pos;
+                }
+                pos = end;
+            } else {
+                tok_pos[T] = pos; tok_len[T] = -1; tok_off[T] = blk[pos]; T++;
+                freq[blk[pos]]++;
+                if (flags) { imm_buf[pos] = pos; R_buf[pos] = 0;
+                             CL_buf[pos] = 0; }
+                if (pos + 3 <= n) {
+                    uint32_t h = xp_hash3(blk + pos);
+                    prev_buf[pos] = head[h];
+                    head[h] = pos;
+                }
+                pos++;
+            }
+        }
+        /* table */
+        uint8_t lens[XH_SYMS];
+        uint16_t codes[XH_SYMS];
+        xh_build_lengths(freq, lens);
+        xh_canonical(lens, codes);
+        if (o + 256 > cap) return ERR_BUF;
+        for (int i2 = 0; i2 < 256; i2++)
+            out[o + i2] = (uint8_t)(lens[2 * i2] | (lens[2 * i2 + 1] << 4));
+        o += 256;
+        /* bitstream */
+        xh_writer w;
+        if (xhw_init(&w, out, cap, o)) return ERR_BUF;
+        for (int t = 0; t < T; t++) {
+            if (tok_len[t] < 0) {
+                int s = tok_off[t];
+                if (xhw_bits(&w, codes[s], lens[s])) return ERR_BUF;
+            } else {
+                int L = tok_len[t] - 3;
+                int off = tok_off[t];
+                int obc = 0; while ((1 << (obc + 1)) <= off) obc++;
+                int lh = L < 15 ? L : 15;
+                int s = 256 + ((obc << 4) | lh);
+                if (xhw_bits(&w, codes[s], lens[s])) return ERR_BUF;
+                if (xhw_bits(&w, (uint32_t)off & ((1u << obc) - 1), obc)) return ERR_BUF;
+                if (lh == 15) {
+                    int rem = L - 15;
+                    if (rem < 255) {
+                        if (w.o >= w.cap) return ERR_BUF;
+                        w.out[w.o++] = (uint8_t)rem;
+                    } else {
+                        if (w.o + 3 > w.cap) return ERR_BUF;
+                        w.out[w.o++] = 255;
+                        w.out[w.o++] = (uint8_t)L;
+                        w.out[w.o++] = (uint8_t)(L >> 8);
+                    }
+                }
+            }
+        }
+        xhw_flush(&w);
+        o = w.o;
+    }
+    return o;
+}
+
+int xh_compress_opt(const uint8_t *in, int in_len, uint8_t *out, int cap,
+                    int flags) {
+    int o = 0;
+    int nblocks = in_len ? (in_len + XH_BLOCK - 1) / XH_BLOCK : 1;
+    for (int bi = 0; bi < nblocks; bi++) {
+        const uint8_t *blk = in + bi * XH_BLOCK;
+        int n = in_len - bi * XH_BLOCK;
+        if (n > XH_BLOCK) n = XH_BLOCK;
+        if (n < 0) n = 0;
+        int c = xh_compress_block(blk, n, out + o, cap - o, flags, bi == 0);
+        if (c < 0) return c;
+        o += c;
+    }
+    return o;
+}
+
+int xh_compress(const uint8_t *in, int in_len, uint8_t *out, int cap) {
+    return xh_compress_opt(in, in_len, out, cap, 0);
+}
+
+/* Shared XH parse loop.  ``disp``/``tokp`` (both-or-neither) record each
+ * output byte's source displacement (0 for literals) and its token's
+ * first output position — inputs to offline resolve-schedule analysis.
+ * static inline + compile-time-NULL call site: the production
+ * xh_decompress wrapper constant-folds the recording branches away, so
+ * there is exactly ONE parse loop to maintain. */
+static inline int xh_decompress_impl(const uint8_t *in, int in_len,
+                                     uint8_t *out, int out_len,
+                                     int32_t *disp, int32_t *tokp) {
+    static uint16_t lut[1 << XH_MAXLEN]; /* (sym<<4)|len */
+    int i = 0, o = 0;
+    while (o < out_len) {
+        if (i + 256 > in_len) return ERR_DATA;
+        uint8_t lens[XH_SYMS];
+        for (int k = 0; k < 256; k++) {
+            lens[2 * k] = in[i + k] & 0xF;
+            lens[2 * k + 1] = in[i + k] >> 4;
+        }
+        i += 256;
+        if (!xh_lengths_fit(lens)) return ERR_TABLE;
+        uint16_t codes[XH_SYMS];
+        xh_canonical(lens, codes);
+        memset(lut, 0xFF, sizeof(lut));
+        for (int s = 0; s < XH_SYMS; s++) {
+            if (!lens[s]) continue;
+            int span = 1 << (XH_MAXLEN - lens[s]);
+            int base = codes[s] << (XH_MAXLEN - lens[s]);
+            for (int k = 0; k < span; k++) lut[base + k] = (uint16_t)((s << 4) | lens[s]);
+        }
+        /* bit reader */
+        uint32_t bitbuf = 0;
+        int bitcount = 0, bits_used = 0, raw_used = 0;
+        int start = i, p = i;
+        uint32_t w0 = 0, w1 = 0;
+        w0 = (p < in_len ? in[p] : 0) | ((p + 1 < in_len ? in[p + 1] : 0) << 8); p += 2;
+        w1 = (p < in_len ? in[p] : 0) | ((p + 1 < in_len ? in[p + 1] : 0) << 8); p += 2;
+        bitbuf = (w0 << 16) | w1;
+        bitcount = 32;
+        int block_end = o + XH_BLOCK;
+        if (block_end > out_len) block_end = out_len;
+        while (o < block_end) {
+            uint16_t e = lut[(bitbuf >> 17) & 0x7FFF];
+            if (e == 0xFFFF) return ERR_DATA;
+            int sym = e >> 4, sl = e & 0xF;
+            bitbuf <<= sl; bitcount -= sl; bits_used += sl;
+            if (bitcount < 16) {
+                uint32_t wnext = (uint32_t)((p < in_len ? in[p] : 0) | ((p + 1 < in_len ? in[p + 1] : 0) << 8));
+                bitbuf |= wnext << (16 - bitcount);
+                p += 2; bitcount += 16;
+            }
+            if (sym < 256) {
+                if (disp) { disp[o] = 0; tokp[o] = o; }
+                out[o++] = (uint8_t)sym;
+                continue;
+            }
+            int m = sym - 256;
+            int obc = m >> 4;
+            uint32_t L = (uint32_t)(m & 0xF);
+            uint32_t off = (1u << obc);
+            if (obc) {
+                off |= (bitbuf >> (32 - obc));
+                bitbuf <<= obc; bitcount -= obc; bits_used += obc;
+                if (bitcount < 16) {
+                    uint32_t wnext = (uint32_t)((p < in_len ? in[p] : 0) | ((p + 1 < in_len ? in[p + 1] : 0) << 8));
+                    bitbuf |= wnext << (16 - bitcount);
+                    p += 2; bitcount += 16;
+                }
+            }
+            if (L == 15) {
+                if (p >= in_len) return ERR_DATA;
+                uint32_t b = in[p++]; raw_used++;
+                if (b == 255) {
+                    uint32_t u16 = (uint32_t)((p < in_len ? in[p] : 0) | ((p + 1 < in_len ? in[p + 1] : 0) << 8));
+                    p += 2; raw_used += 2;
+                    if (u16 == 0) {
+                        if (p + 4 > in_len) return ERR_DATA;
+                        memcpy(&u16, in + p, 4); p += 4; raw_used += 4;
+                    }
+                    L = u16;
+                } else {
+                    L = b + 15;
+                }
+            }
+            int len = (int)L + 3;
+            if ((int)off > o || o + len > out_len) return ERR_DATA;
+            int t0 = o;
+            for (int k = 0; k < len; k++, o++) {
+                if (disp) { disp[o] = (int32_t)off; tokp[o] = t0; }
+                out[o] = out[o - (int)off];
+            }
+        }
+        /* writer-layout span: 2*(2+f)+raw, f = max(0, ceil(bits/16)-1) */
+        int flushes = bits_used > 16 ? (bits_used + 15) / 16 - 1 : 0;
+        i = start + 2 * (2 + flushes) + raw_used;
+    }
+    return o;
+}
+
+int xh_decompress(const uint8_t *in, int in_len, uint8_t *out, int out_len) {
+    return xh_decompress_impl(in, in_len, out, out_len, NULL, NULL);
+}
