@@ -325,6 +325,28 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def spanned(fn):
+    """``fn()`` under a CPU-only profiler session: its result, and its
+    spans' counters (summed) and seconds a stage span
+    (``tpucomp_torch.stats``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpucomp_torch import stats
+
+    stats.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    counts, seconds = {}, {}
+    for r in stats.spans():
+        for k, n in r.counters.items():
+            counts[k] = counts.get(k, 0) + n
+        if r.kind == "stage":
+            seconds[r.name] = (seconds.get(r.name, 0.0)
+                               + (r.end_ns - r.start_ns) * 1e-9)
+    stats.clear()
+    return out, counts, seconds
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> list[float]:
     """Per-call device times in ms, one CUDA-event pair per call."""
     import torch
@@ -2040,9 +2062,9 @@ def xh_oneshot_phases(dev, data: bytes, native, kernels) -> dict:
              "the cross-block vector": (vec, vec_data)}
     outs, stats = {}, {}
     for label, (stream, want) in calls.items():
-        outs[label] = tpucomp_torch.decompress("xpress_huff", stream,
-                                               len(want), device="cuda")
-        stats[label] = dict(xh.decompress.stats)
+        outs[label], stats[label], _ = spanned(
+            lambda: tpucomp_torch.decompress("xpress_huff", stream,
+                                             len(want), device="cuda"))
     try:
         tpucomp_torch.decompress("xpress_huff", spec[:len(spec) // 2],
                                  len(spec_data), device="cuda")
@@ -2056,7 +2078,8 @@ def xh_oneshot_phases(dev, data: bytes, native, kernels) -> dict:
         require(outs[label] == want, f"xh one-shot decompress of {label} "
                 "differs from the input")
         print(f"xh one-shot decompress of {label}: {len(want)} bytes equal "
-              f"to the input, {stats[label]['batch_decodes']} batch decodes")
+              f"to the input, {stats[label]['xh.batch_decodes']} batch "
+              "decodes")
     require(native.xh_decompress(spec, len(spec_data))
             == outs["8 MiB (speculative)"],
             "the 8 MiB one-shot decode differs from the native C decoder")
@@ -2075,12 +2098,14 @@ def xh_oneshot_phases(dev, data: bytes, native, kernels) -> dict:
             "xpress_huff", stream, len(want), device="cuda"), reps=reps,
             warmup=0)
         med = statistics.median(ms)
-        st = xh.decompress.stats
+        _, counts, seconds = spanned(lambda: tpucomp_torch.decompress(
+            "xpress_huff", stream, len(want), device="cuda"))
         print(f"xh one-shot decompress of {label}: median {med:.4f} ms of "
               f"{[round(m, 4) for m in ms]} -> {len(want) / med / 1e6:.4f} "
-              f"GB/s; {st['batch_decodes']} batch decodes; host steps of "
-              "the last run (s; a phase includes its batch decodes): "
-              + "; ".join(f"{k} {v:.4f}" for k, v in st["seconds"].items()))
+              f"GB/s; {counts['xh.batch_decodes']} batch decodes; stage "
+              "spans of one more run under the profiler (s; a step "
+              "includes its batch decodes): "
+              + "; ".join(f"{k} {v:.4f}" for k, v in seconds.items()))
     profile_device("xh one-shot decompress (8 MiB)",
                    lambda: tpucomp_torch.decompress(
                        "xpress_huff", spec, len(spec_data), device="cuda"))

@@ -27,6 +27,7 @@ from tpucomp_torch.codecs import xpress_huff as xh
 from tpucomp_torch.kernels import commit, common, fill, gather, lznt1_parse
 from tpucomp_torch.kernels import match, resolve, runs, sort, xh_parse
 from tpucomp_torch.kernels import xp_parse
+from _spans import totals, traced
 from test_torch_commit import segment_walk, walk_rows
 from test_torch_far_row import CASES as FAR_CASES, WIDTHS as FAR_WIDTHS
 from test_torch_far_row import NARROW, case_rows, far_row_model, narrow_rows
@@ -1184,12 +1185,15 @@ def test_xh_oneshot_decode_on_card(dev):
     cut short raises DataError."""
     native = Native()
     data, s, _ = _ten_blocks(native)
-    got = tpucomp_torch.decompress("xpress_huff", s, len(data))
-    assert got == data and xh.decompress.stats["batch_decodes"] == 3
+    got, records = traced(lambda: tpucomp_torch.decompress(
+        "xpress_huff", s, len(data)))
+    assert got == data and totals(records)["xh.batch_decodes"] == 3
     assert tpucomp_torch.decompress("xpress_huff", s, len(data),
                                     device="cpu") == data
     data, s, _ = _vector()
-    assert tpucomp_torch.decompress("xpress_huff", s, len(data)) == data
-    assert xh.decompress.stats["batch_decodes"] >= 3
+    got, records = traced(lambda: tpucomp_torch.decompress(
+        "xpress_huff", s, len(data)))
+    assert got == data
+    assert totals(records)["xh.batch_decodes"] >= 3
     with pytest.raises(tpucomp_torch.DataError):
         tpucomp_torch.decompress("xpress_huff", s[:len(s) // 2], len(data))

@@ -26,6 +26,7 @@ from tpucomp import _native
 from tpucomp.codecs import xpress_huff as t_xh
 from tpucomp.oracle import xpress_huff as oracle
 from tpucomp_torch.codecs import xpress_huff as xh
+from _spans import names, totals, traced
 from _threads import _one_thread  # noqa: F401
 
 BLOCK = xh.BLOCK
@@ -75,13 +76,12 @@ def tpucomp_decompress(stream, n):
 
 
 def port_decompress(stream, n):
-    """The port's: (bytes or the exception; its batch decodes)."""
-    try:
-        out = tpucomp_torch.decompress("xpress_huff", stream, n,
-                                       device="cpu")
-    except Exception as e:  # noqa: BLE001 - compared with tpucomp's
-        out = e
-    return out, xh.decompress.stats["batch_decodes"]
+    """The port's: (bytes or the exception; its batch decodes; the names
+    of its steps)."""
+    out, records = traced(lambda: tpucomp_torch.decompress(
+        "xpress_huff", stream, n, device="cpu"))
+    return out, totals(records).get("xh.batch_decodes", 0), names(
+        records, "stage")
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,7 +113,7 @@ def _hold(stream, n):
     """The port against tpucomp on one stream: the same bytes or the same
     error, and the same count of batch decodes.  Returns the bytes."""
     want, want_n = tpucomp_decompress(stream, n)
-    got, got_n = port_decompress(stream, n)
+    got, got_n, steps = port_decompress(stream, n)
     if isinstance(want, Exception):
         assert isinstance(want, t_xh.DataError), want
         assert isinstance(got, tpucomp_torch.DataError), got
@@ -121,7 +121,7 @@ def _hold(stream, n):
         assert not isinstance(got, Exception), got
         assert got == want
     assert got_n == want_n
-    return got
+    return got, got_n, steps
 
 
 # each stream's batch decodes, tpucomp's own bounds where its tests state
@@ -136,15 +136,14 @@ STREAMS = {"one_block": (1, 1), "partial_block": (1, 1),
 
 @pytest.mark.parametrize("name", list(STREAMS))
 def test_decompress_matches_tpucomp(name):
-    got = _hold(_stream(name), len(_data(name)))
+    got, batch_decodes, steps = _hold(_stream(name), len(_data(name)))
     assert got == _data(name)
     lo, hi = STREAMS[name]
-    assert lo <= xh.decompress.stats["batch_decodes"] <= hi
-    steps = xh.decompress.stats["seconds"]
+    assert lo <= batch_decodes <= hi
     if len(_data(name)) > BLOCK:  # the speculative path
-        assert {"Kraft scan", "chain walk", "fixpoint"} <= set(steps)
+        assert {"xh.kraft_scan", "xh.chain_walk", "xh.fixpoint"} <= steps
     else:
-        assert "sequential walk" in steps
+        assert "xh.sequential_walk" in steps
 
 
 def test_out_len_none_and_zero():
@@ -156,9 +155,9 @@ def test_out_len_none_and_zero():
             call()
     with pytest.raises(t_xh.ArgError):
         t_xh.decompress(s, None)
-    assert tpucomp_torch.decompress("xpress_huff", s, 0, device="cpu") \
-        == t_xh.decompress(s, 0) == b""
-    assert xh.decompress.stats["batch_decodes"] == 0
+    got, batch_decodes, _ = port_decompress(s, 0)
+    assert got == t_xh.decompress(s, 0) == b""
+    assert batch_decodes == 0
 
 
 def test_vector_is_the_oracle_stream():

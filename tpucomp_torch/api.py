@@ -45,6 +45,7 @@ from . import formats
 from .codecs import lznt1, xpress, xpress_huff
 from .errors import ArgError, DataError, UnsupportedFormatError
 from .formats import Format
+from .stats import count, span
 from .util import resolve_device
 
 _BACKEND_PREFERENCE = ("cpu", "oracle")
@@ -105,8 +106,13 @@ def compress(fmt, data: bytes, *, backend: str = "device", device="cuda",
     ``cross_block=True``)."""
     if data is None:
         raise ArgError("data must be bytes-like")
-    _, comp, _ = _pick(_lookup(fmt, "compress"), backend, device)
-    return comp(bytes(data), **opts)
+    with span("api.compress", "call"):
+        _, comp, _ = _pick(_lookup(fmt, "compress"), backend, device)
+        data = bytes(data)
+        out = comp(data, **opts)
+        count("bytes_in", len(data))
+        count("bytes_out", len(out))
+        return out
 
 
 def compress_batch(fmt, units, *, unit_size: Optional[int] = None,
@@ -123,15 +129,21 @@ def compress_batch(fmt, units, *, unit_size: Optional[int] = None,
     one row each.
     """
     fmt = formats.canonical(fmt)
-    if fmt == Format.LZNT1:
-        return lznt1.compress_units(list(units), device=device)
-    if fmt == Format.XPRESS:
-        return xpress.compress_units(list(units), unit_size or xpress.UNIT,
-                                     device=device)
-    if fmt == Format.XPRESS_HUFF:
-        return xpress_huff.compress_units(
-            list(units), unit_size or xpress_huff.BLOCK, device=device)
-    raise _not_ported(fmt, "compress_batch")
+    with span("api.compress_batch", "call"):
+        units = list(units)
+        if fmt == Format.LZNT1:
+            out = lznt1.compress_units(units, device=device)
+        elif fmt == Format.XPRESS:
+            out = xpress.compress_units(units, unit_size or xpress.UNIT,
+                                        device=device)
+        elif fmt == Format.XPRESS_HUFF:
+            out = xpress_huff.compress_units(
+                units, unit_size or xpress_huff.BLOCK, device=device)
+        else:
+            raise _not_ported(fmt, "compress_batch")
+        count("bytes_in", sum(map(len, units)))
+        count("bytes_out", sum(map(len, out)))
+        return out
 
 
 def max_compressed_size(fmt, n: int) -> int:
@@ -159,8 +171,13 @@ def decompress(fmt, data: bytes, out_len: Optional[int] = None, *,
     """
     if data is None:
         raise ArgError("data must be bytes-like")
-    _, _, decomp = _pick(_lookup(fmt, "decompress"), backend, device)
-    return decomp(bytes(data), out_len, **opts)
+    with span("api.decompress", "call"):
+        _, _, decomp = _pick(_lookup(fmt, "decompress"), backend, device)
+        data = bytes(data)
+        out = decomp(data, out_len, **opts)
+        count("bytes_in", len(data))
+        count("bytes_out", len(out))
+        return out
 
 
 def decompress_batch(fmt, streams, out_lens=None, *,
@@ -179,21 +196,27 @@ def decompress_batch(fmt, streams, out_lens=None, *,
     XPRESS: as XPRESS_HUFF, with ``unit_size`` any width up to 65536.
     """
     fmt = formats.canonical(fmt)
-    if fmt == Format.LZNT1:
-        return lznt1.decompress_units(list(streams), device=device)
-    if fmt == Format.XPRESS:
-        if out_lens is None:
-            raise ArgError("XPRESS: out_lens is required")
-        return xpress.decompress_units(list(streams), list(out_lens),
-                                       unit_size or xpress.UNIT,
-                                       device=device)
-    if fmt == Format.XPRESS_HUFF:
-        if out_lens is None:
-            raise ArgError("XPRESS_HUFF: out_lens is required")
-        return xpress_huff.decompress_units(
-            list(streams), list(out_lens), unit_size or xpress_huff.BLOCK,
-            device=device)
-    raise _not_ported(fmt, "decompress_batch")
+    with span("api.decompress_batch", "call"):
+        streams = list(streams)
+        if fmt == Format.LZNT1:
+            out = lznt1.decompress_units(streams, device=device)
+        elif fmt == Format.XPRESS:
+            if out_lens is None:
+                raise ArgError("XPRESS: out_lens is required")
+            out = xpress.decompress_units(streams, list(out_lens),
+                                          unit_size or xpress.UNIT,
+                                          device=device)
+        elif fmt == Format.XPRESS_HUFF:
+            if out_lens is None:
+                raise ArgError("XPRESS_HUFF: out_lens is required")
+            out = xpress_huff.decompress_units(
+                streams, list(out_lens), unit_size or xpress_huff.BLOCK,
+                device=device)
+        else:
+            raise _not_ported(fmt, "decompress_batch")
+        count("bytes_in", sum(map(len, streams)))
+        count("bytes_out", sum(map(len, out)))
+        return out
 
 
 def _lznt1_complete_chunks(buf: bytearray):

@@ -39,7 +39,8 @@ from ..kernels.lznt1_parse import COPY_BIT, lznt1_parse
 from ..kernels.match import extend_saturated, hash_best_match
 from ..kernels.resolve import SEG, resolve_near
 from ..kernels.runs import run_matchlens
-from ..util import resolve_device
+from ..stats import count, span
+from ..util import any_set, resolve_device, to_device, to_host
 
 CHUNK = 4096
 # Compressed payload bound: 4096 literals + 512 flag bytes.
@@ -71,6 +72,7 @@ def batch_from_numpy(payload: np.ndarray, plen: np.ndarray,
             torch.from_numpy(is_comp).to(dev))
 
 
+@span("lznt1.decode", "compute")
 def decode_batch(payload: torch.Tensor, plen: torch.Tensor,
                  is_comp: torch.Tensor):
     """Decode a batch of LZNT1 chunk payloads (headers already stripped).
@@ -127,6 +129,7 @@ def split_stream(data: bytes):
     return payloads, comps
 
 
+@span("lznt1.pack_chunks", "stage")
 def pack_chunks(payloads, comps, device):
     """Chunk payloads -> a batch on ``device``, one row per chunk.
 
@@ -141,32 +144,41 @@ def pack_chunks(payloads, comps, device):
         payload[k, :len(pl)] = np.frombuffer(pl, np.uint8)
         plen[k] = len(pl)
         is_comp[k] = cp
-    return (torch.from_numpy(payload).to(device),
-            torch.from_numpy(plen).to(device),
-            torch.from_numpy(is_comp).to(device))
+    count("lznt1.chunks", N)
+    count("lznt1.chunks_compressed", int(np.count_nonzero(is_comp)))
+    return (to_device(payload, device), to_device(plen, device),
+            to_device(is_comp, device))
 
 
+@span("lznt1.joined_output", "stage")
 def joined_output(out: torch.Tensor, out_len: torch.Tensor) -> bytes:
     """The first out_len[k] bytes of every row k, concatenated."""
     keep = torch.arange(CHUNK, device=out.device) < out_len[:, None]
-    return out[keep].cpu().numpy().tobytes()
+    # the mask's selection waits on the card for its size
+    with span("sync.lznt1_output", "sync"):
+        kept = out[keep]
+        count("d2h_bytes", kept.nbytes)
+        kept = kept.cpu()
+    return kept.numpy().tobytes()
 
 
 def decompress(data: bytes, out_len=None, *, device="cuda") -> bytes:
     """One-shot LZNT1 decode on ``device`` (chunk-parallel)."""
     dev = resolve_device(device)
     data = bytes(data)
-    payloads, comps = split_stream(data)
+    with span("lznt1.split_stream", "stage"):
+        payloads, comps = split_stream(data)
     if not payloads:
         return b""
     out, out_lens, err = decode_batch(*pack_chunks(payloads, comps, dev))
-    if bool(err.any()):
+    if any_set(err, "sync.lznt1_err"):
         raise DataError("LZNT1: malformed stream")
     result = joined_output(out, out_lens)
     if out_len is not None:
         if len(result) < out_len:
             raise DataError("LZNT1: stream ended before out_len bytes")
-        result = result[:out_len]
+        with span("lznt1.joined_output", "stage"):
+            result = result[:out_len]
     return result
 
 
@@ -184,7 +196,8 @@ def decompress_chunks(chunks, *, device="cuda"):
     payloads = [c[2:] for c in chunks]
     comps = [bool(c[1] & 0x80) for c in chunks]
     out, out_lens, err = decode_batch(*pack_chunks(payloads, comps, dev))
-    bad = err.nonzero()
+    with span("sync.lznt1_err", "sync"):
+        bad = err.nonzero().cpu()
     if len(bad):
         return b"", int(bad[0, 0])
     return joined_output(out, out_lens), None
@@ -199,25 +212,27 @@ def decompress_units(streams, *, device="cuda") -> list:
     """
     dev = resolve_device(device)
     payloads, comps, owner = [], [], []
-    for i, s in enumerate(streams):
-        try:
-            pls, cps = split_stream(bytes(s))
-        except DataError as e:
-            raise ArgError("LZNT1: truncated chunk in unit") from e
-        payloads += pls
-        comps += cps
-        owner += [i] * len(pls)
+    with span("lznt1.split_stream", "stage"):
+        for i, s in enumerate(streams):
+            try:
+                pls, cps = split_stream(bytes(s))
+            except DataError as e:
+                raise ArgError("LZNT1: truncated chunk in unit") from e
+            payloads += pls
+            comps += cps
+            owner += [i] * len(pls)
     if not payloads:
         return [b"" for _ in streams]
     out, out_lens, err = decode_batch(*pack_chunks(payloads, comps, dev))
-    if bool(err.any()):
+    if any_set(err, "sync.lznt1_err"):
         raise ArgError("LZNT1: malformed unit")
     flat = joined_output(out, out_lens)
-    ends = np.cumsum(out_lens.cpu().numpy())
-    parts = [[] for _ in streams]
-    for k, i in enumerate(owner):
-        parts[i].append(flat[ends[k - 1] if k else 0: ends[k]])
-    return [b"".join(p) for p in parts]
+    ends = np.cumsum(to_host(out_lens, "sync.lznt1_out_lens"))
+    with span("lznt1.joined_output", "stage"):
+        parts = [[] for _ in streams]
+        for k, i in enumerate(owner):
+            parts[i].append(flat[ends[k - 1] if k else 0: ends[k]])
+        return [b"".join(p) for p in parts]
 
 
 # --------------------------------------------------------------------------
@@ -246,7 +261,7 @@ L_MASK_TABLE, D_SHIFT_TABLE = _split_tables()
 @functools.lru_cache(maxsize=None)
 def _split_tables_on(dev: torch.device):
     """The two tables as [1, CHUNK] int32 tensors on ``dev``, copied once."""
-    return tuple(torch.from_numpy(t).to(dev)[None, :]
+    return tuple(to_device(t, dev)[None, :]
                  for t in (L_MASK_TABLE, D_SHIFT_TABLE))
 
 
@@ -269,9 +284,14 @@ def encode_batch(chunks: torch.Tensor, clen: torch.Tensor,
       plen:    int32 [N] payload length, 0 for an empty chunk (the caller
                stores a chunk raw when ``plen >= clen``)
     """
-    best_len, best_disp, use_match, okpos = find_matches(chunks, clen, match)
-    walk = greedy_commit_layout(use_match, best_len, okpos)
-    return assemble_payload(chunks, best_len, best_disp, use_match, *walk)
+    with span("lznt1.find_matches", "compute"):
+        best_len, best_disp, use_match, okpos = find_matches(chunks, clen,
+                                                             match)
+    with span("lznt1.greedy_commit", "compute"):
+        walk = greedy_commit_layout(use_match, best_len, okpos)
+    with span("lznt1.assemble_payload", "compute"):
+        return assemble_payload(chunks, best_len, best_disp, use_match,
+                                *walk)
 
 
 def find_matches(chunks: torch.Tensor, clen: torch.Tensor,
@@ -390,22 +410,33 @@ def frame_chunks(payload: np.ndarray, plen: np.ndarray, chunks: np.ndarray,
     (``0xB000 | plen - 1``, then the payload) when ``plen < clen``, else
     stored raw (``0x3000 | clen - 1``, then the chunk)."""
     out = []
+    raw = 0
     for k in range(len(clen)):
         pl, cl = int(plen[k]), int(clen[k])
         if pl < cl:
             out.append((0xB000 | (pl - 1)).to_bytes(2, "little")
                        + payload[k, :pl].tobytes())
         else:
+            raw += 1
             out.append((0x3000 | (cl - 1)).to_bytes(2, "little")
                        + chunks[k, :cl].tobytes())
+    count("lznt1.chunks_raw", raw)
     return out
 
 
+def _encode_rows(chunks: np.ndarray, clen: np.ndarray, dev):
+    """The chunks' payloads and their lengths, encoded on ``dev``, on the
+    host."""
+    payload, plen = encode_batch(to_device(chunks, dev),
+                                 to_device(clen, dev))
+    return (to_host(payload, "sync.lznt1_payload"),
+            to_host(plen, "sync.lznt1_plen"))
+
+
 def _encode_framed(chunks: np.ndarray, clen: np.ndarray, dev) -> list:
-    payload, plen = encode_batch(torch.from_numpy(chunks).to(dev),
-                                 torch.from_numpy(clen).to(dev))
-    return frame_chunks(payload.cpu().numpy(), plen.cpu().numpy(), chunks,
-                        clen)
+    encoded = _encode_rows(chunks, clen, dev)
+    with span("lznt1.frame_chunks", "stage"):
+        return frame_chunks(*encoded, chunks, clen)
 
 
 def compress(data: bytes, *, device="cuda") -> bytes:
@@ -415,7 +446,14 @@ def compress(data: bytes, *, device="cuda") -> bytes:
     data = bytes(data)
     if not data:
         return b""
-    return b"".join(_encode_framed(*split_chunks(data), dev))
+    with span("lznt1.split_chunks", "stage"):
+        chunks, clen = split_chunks(data)
+        count("lznt1.chunks", len(clen))
+    encoded = _encode_rows(chunks, clen, dev)
+    with span("lznt1.frame_chunks", "stage"):
+        framed = b"".join(frame_chunks(*encoded, chunks, clen))
+        del chunks, encoded  # the host rows are freed in the stage
+    return framed
 
 
 def compress_units(units, *, device="cuda") -> list:
@@ -435,11 +473,13 @@ def compress_units(units, *, device="cuda") -> list:
     out = [b""] * len(units)
     if not full:
         return out
-    chunks = np.zeros((len(full), CHUNK), np.uint8)
-    clen = np.zeros(len(full), np.int32)
-    for k, i in enumerate(full):
-        chunks[k, :len(units[i])] = np.frombuffer(units[i], np.uint8)
-        clen[k] = len(units[i])
+    with span("lznt1.split_chunks", "stage"):
+        chunks = np.zeros((len(full), CHUNK), np.uint8)
+        clen = np.zeros(len(full), np.int32)
+        for k, i in enumerate(full):
+            chunks[k, :len(units[i])] = np.frombuffer(units[i], np.uint8)
+            clen[k] = len(units[i])
+        count("lznt1.chunks", len(full))
     for i, framed in zip(full, _encode_framed(chunks, clen, dev)):
         out[i] = framed
     return out

@@ -73,8 +73,6 @@ depends on it.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -101,7 +99,9 @@ from ..kernels.huffman import (
 )
 from ..kernels.resolve import SEG, resolve_near
 from ..kernels.xh_parse import COPY_BIT, xh_parse
-from ..util import resolve_device, row_streams, unit_rows
+from ..stats import count, span
+from ..util import (any_set, resolve_device, row_streams, to_device,
+                    to_host, unit_rows)
 
 BLOCK = 65536
 TABLE = 256  # bytes of code lengths before the body
@@ -167,6 +167,7 @@ def batch_from_numpy(payload: np.ndarray, plen: np.ndarray,
             *(torch.from_numpy(a).to(dev) for a in arrays))
 
 
+@span("xh.decode", "compute")
 def decode_batch(payload: torch.Tensor, plen: torch.Tensor,
                  out_len: torch.Tensor, ss: torch.Tensor, U: int,
                  fast_resolve: bool = False, *, hist=None, hist_len=None,
@@ -271,6 +272,7 @@ def history_planes(is_copy, disp, litv, hist):
             torch.cat([hist.to(torch.int32), litv], 1))
 
 
+@span("xh.pack_units", "stage")
 def pack_units(streams, out_lens, unit_size: int, device):
     """Unit streams -> a batch on ``device``, one row per unit, with each
     row's substep tier.  Raises :class:`ArgError` for an out_len past
@@ -293,10 +295,8 @@ def pack_units(streams, out_lens, unit_size: int, device):
         payload[i, :len(a)] = a
         plen[i] = len(a)
         ss[i] = _substeps_for(_min_code_len([s]))
-    return (torch.from_numpy(payload).to(device),
-            torch.from_numpy(plen).to(device),
-            torch.from_numpy(np.asarray(out_lens, np.int32)).to(device),
-            torch.from_numpy(ss).to(device))
+    return tuple(to_device(a, device) for a in (
+        payload, plen, np.asarray(out_lens, np.int32), ss))
 
 
 def decompress_units(streams, out_lens, unit_size=BLOCK, fast_resolve=False,
@@ -320,11 +320,16 @@ def decompress_units(streams, out_lens, unit_size=BLOCK, fast_resolve=False,
     if len(out_lens) != len(streams):
         raise ArgError("one out_len per stream is required")
     batch = pack_units(streams, out_lens, unit_size, dev)
+    count("xh.units", len(streams))
     out, err = decode_batch(*batch, unit_size, fast_resolve=fast_resolve)
-    if bool(err.any()):
+    count("xh.batch_decodes")
+    if any_set(err, "sync.xh_err"):
         raise DataError("XpressHuff: malformed unit stream")
-    out = out.cpu().numpy()
-    return [out[i, :o].tobytes() for i, o in enumerate(out_lens)]
+    out = to_host(out, "sync.xh_output")
+    with span("xh.split_output", "stage"):
+        units = [out[i, :o].tobytes() for i, o in enumerate(out_lens)]
+        del out  # the host rows are freed in the stage
+    return units
 
 
 # --------------------------------------------------------------------------
@@ -374,15 +379,7 @@ def walk_width(n: int, off: int) -> int:
                + 16)
 
 
-def _clock(stats: dict, step: str, t0: float) -> float:
-    """Add the host seconds since ``t0`` to ``stats["seconds"][step]``;
-    returns the time now."""
-    t = time.perf_counter()
-    sec = stats["seconds"]
-    sec[step] = sec.get(step, 0.0) + t - t0
-    return t
-
-
+@span("xh.pack_units", "stage")
 def history_batch(data: bytes, offs, olens, hists, hlens, P: int, dev):
     """The batch of :func:`history_decode` on ``dev``: (payload, plen,
     out_len, ss, hist, hist_len), the arguments of :func:`decode_batch`
@@ -399,30 +396,27 @@ def history_batch(data: bytes, offs, olens, hists, hlens, P: int, dev):
         if hists[i]:
             h = np.frombuffer(hists[i], np.uint8)
             hist[i, HIST - len(h):] = h
-    return [torch.from_numpy(a).to(dev) for a in (
+    return [to_device(a, dev) for a in (
         payload, plen, np.asarray(olens, np.int32), np.full(N, ss, np.int32),
         hist, np.asarray(hlens, np.int32))]
 
 
-def history_decode(data: bytes, offs, olens, hists, hlens, P: int, dev,
-                   stats: dict):
+def history_decode(data: bytes, offs, olens, hists, hlens, P: int, dev):
     """One batch decode: the blocks that start at ``offs`` in ``data``,
     each sliced to at most ``P`` bytes, decoding ``olens[i]`` bytes over
     the history ``hists[i]`` (bytes, right-aligned before the block; None
     for zeros) with reach ``hlens[i]``, all rows at the largest substep
-    tier of the slices.  Counts itself in ``stats``.  Returns (outs uint8
-    [n, 65536], errs bool [n], spans int [n]) on the host."""
-    t = time.perf_counter()
+    tier of the slices.  Counts itself (``xh.batch_decodes``) and its
+    rows (``xh.units``).  Returns (outs uint8 [n, 65536], errs bool [n],
+    spans int [n]) on the host."""
     batch = history_batch(data, offs, olens, hists, hlens, P, dev)
-    t = _clock(stats, "slice and upload", t)
-    out, err, span = decode_batch(*batch[:4], BLOCK, hist=batch[4],
-                                  hist_len=batch[5], want_span=True)
-    err, span = err.cpu().numpy(), span.cpu().numpy()
-    t = _clock(stats, "batch decode", t)
-    out = out.cpu().numpy()
-    _clock(stats, "copy back", t)
-    stats["batch_decodes"] += 1
-    return out, err, span
+    count("xh.units", len(offs))
+    out, err, spans = decode_batch(*batch[:4], BLOCK, hist=batch[4],
+                                   hist_len=batch[5], want_span=True)
+    count("xh.batch_decodes")
+    err = to_host(err, "sync.xh_err")
+    spans = to_host(spans, "sync.xh_span")
+    return to_host(out, "sync.xh_output"), err, spans
 
 
 def _malformed() -> DataError:
@@ -430,7 +424,7 @@ def _malformed() -> DataError:
                      "a 64 KiB block boundary)")
 
 
-def _decompress_speculative(data: bytes, out_len: int, dev, stats: dict):
+def _decompress_speculative(data: bytes, out_len: int, dev):
     """The multi-block decode in a few batch decodes instead of one a
     block (tpucomp's ``_decompress_speculative``, step for step): the
     Kraft scan, one speculative batch of every candidate over an all-zero
@@ -438,10 +432,9 @@ def _decompress_speculative(data: bytes, out_len: int, dev, stats: dict):
     history until the output is stable (depth-k cross-block chains take
     k + 1 passes).  Returns the output, or None when the scan gives up
     or finds nothing (the caller walks the blocks instead)."""
-    t = time.perf_counter()
-    arr = np.frombuffer(data, np.uint8)
-    cands = _kraft_candidates(arr)
-    t = _clock(stats, "Kraft scan", t)
+    with span("xh.kraft_scan", "stage"):
+        arr = np.frombuffer(data, np.uint8)
+        cands = _kraft_candidates(arr)
     if cands is None:
         return None
     cands = cands[cands + TABLE <= len(arr)]
@@ -450,7 +443,7 @@ def _decompress_speculative(data: bytes, out_len: int, dev, stats: dict):
 
     def batch(offs, olens, hists, hlens):
         return history_decode(data, offs, olens, hists, hlens,
-                              batch_width(len(data), offs), dev, stats)
+                              batch_width(len(data), offs), dev)
 
     # the speculative batch: every candidate, a full block, zero history
     offs = [int(o) for o in cands]
@@ -461,42 +454,42 @@ def _decompress_speculative(data: bytes, out_len: int, dev, stats: dict):
     del outs
 
     # the chain walk: the true block starts, by span
-    t = time.perf_counter()
-    chain = []  # (offset, the block's decoded length)
-    off, produced = 0, 0
-    while produced < out_len:
-        if off + TABLE > len(data):
-            raise DataError("XpressHuff: stream ended before out_len bytes")
-        block_out = min(BLOCK, out_len - produced)
-        if block_out != BLOCK or off not in spec:
-            # no candidate (a single-symbol table, the partial last block):
-            # one batch decode finds this link
-            o2, e2, s2 = batch([off], [block_out], [None], [HIST])
-            if e2[0]:
-                raise _malformed()
-            spec[off] = (o2[0].tobytes(), int(s2[0]))
-        chain.append((off, block_out))
-        off += TABLE + spec[off][1]
-        produced += block_out
-    t = _clock(stats, "chain walk", t)
+    with span("xh.chain_walk", "stage"):
+        chain = []  # (offset, the block's decoded length)
+        off, produced = 0, 0
+        while produced < out_len:
+            if off + TABLE > len(data):
+                raise DataError("XpressHuff: stream ended before out_len "
+                                "bytes")
+            block_out = min(BLOCK, out_len - produced)
+            if block_out != BLOCK or off not in spec:
+                # no candidate (a single-symbol table, the partial last
+                # block): one batch decode finds this link
+                o2, e2, s2 = batch([off], [block_out], [None], [HIST])
+                if e2[0]:
+                    raise _malformed()
+                spec[off] = (o2[0].tobytes(), int(s2[0]))
+            chain.append((off, block_out))
+            off += TABLE + spec[off][1]
+            produced += block_out
 
     # the fixpoint: each block over the output of the one before it
-    cur = [spec[o][0][:bo] for o, bo in chain]
-    offs = [o for o, _ in chain]
-    olens = [bo for _, bo in chain]
-    for _ in range(len(chain)):
-        hists = [None] + [c[-HIST:] for c in cur[:-1]]
-        hlens = [0] + [len(h) for h in hists[1:]]
-        o3, e3, _ = batch(offs, olens, hists, hlens)
-        if e3.any():
-            raise _malformed()
-        nxt = [o3[k, :olens[k]].tobytes() for k in range(len(chain))]
-        stable = nxt == cur
-        cur = nxt
-        if stable:
-            break
-    _clock(stats, "fixpoint", t)
-    return b"".join(cur)
+    with span("xh.fixpoint", "stage"):
+        cur = [spec[o][0][:bo] for o, bo in chain]
+        offs = [o for o, _ in chain]
+        olens = [bo for _, bo in chain]
+        for _ in range(len(chain)):
+            hists = [None] + [c[-HIST:] for c in cur[:-1]]
+            hlens = [0] + [len(h) for h in hists[1:]]
+            o3, e3, _ = batch(offs, olens, hists, hlens)
+            if e3.any():
+                raise _malformed()
+            nxt = [o3[k, :olens[k]].tobytes() for k in range(len(chain))]
+            stable = nxt == cur
+            cur = nxt
+            if stable:
+                break
+        return b"".join(cur)
 
 
 def decompress(data: bytes, out_len=None, *, device="cuda") -> bytes:
@@ -508,43 +501,39 @@ def decompress(data: bytes, out_len=None, *, device="cuda") -> bytes:
     :class:`DataError`, as any malformed stream does.  ``out_len`` is
     required (:class:`ArgError`).
 
-    ``decompress.stats`` holds the last call's count of batch decodes and
-    its host seconds a step."""
+    Its steps are the spans ``xh.kraft_scan``, ``xh.chain_walk``,
+    ``xh.fixpoint`` or ``xh.sequential_walk``, and its batch decodes the
+    counter ``xh.batch_decodes`` (:mod:`tpucomp_torch.stats`)."""
     data = bytes(data)
     if out_len is None:
         raise ArgError("XPRESS_HUFF decompression requires out_len")
     dev = resolve_device(device)
-    stats = decompress.stats = {"batch_decodes": 0, "seconds": {}}
     if out_len == 0:
         return b""
     if out_len > BLOCK:
-        got = _decompress_speculative(data, out_len, dev, stats)
+        got = _decompress_speculative(data, out_len, dev)
         if got is not None:
             return got
-    t = time.perf_counter()
-    parts = []
-    off, produced = 0, 0
-    tail = b""  # the last <= 64 KiB of output: the next block's history
-    while produced < out_len:
-        if off + TABLE > len(data):
-            raise DataError("XpressHuff: stream ended before out_len bytes")
-        block_out = min(BLOCK, out_len - produced)
-        out, err, span = history_decode(data, [off], [block_out], [tail],
-                                        [len(tail)],
-                                        walk_width(len(data), off), dev,
-                                        stats)
-        if err[0]:
-            raise _malformed()
-        block = out[0, :block_out].tobytes()
-        parts.append(block)
-        tail = (tail + block)[-HIST:]
-        off += TABLE + int(span[0])
-        produced += block_out
-    _clock(stats, "sequential walk", t)
-    return b"".join(parts)
-
-
-decompress.stats = {"batch_decodes": 0, "seconds": {}}
+    with span("xh.sequential_walk", "stage"):
+        parts = []
+        off, produced = 0, 0
+        tail = b""  # the last <= 64 KiB of output: the next block's history
+        while produced < out_len:
+            if off + TABLE > len(data):
+                raise DataError("XpressHuff: stream ended before out_len "
+                                "bytes")
+            block_out = min(BLOCK, out_len - produced)
+            out, err, spans = history_decode(data, [off], [block_out],
+                                             [tail], [len(tail)],
+                                             walk_width(len(data), off), dev)
+            if err[0]:
+                raise _malformed()
+            block = out[0, :block_out].tobytes()
+            parts.append(block)
+            tail = (tail + block)[-HIST:]
+            off += TABLE + int(spans[0])
+            produced += block_out
+        return b"".join(parts)
 
 
 # --------------------------------------------------------------------------
@@ -572,14 +561,20 @@ def encode_batch(units: torch.Tensor, ulen: torch.Tensor,
     # deferred: codecs.xpress imports this module
     from .xpress import find_matches
 
-    best_len, best_disp, use_match, okpos = find_matches(units, ulen, match,
-                                                         max_disp=None)
-    committed = greedy_commit(use_match, best_len, okpos)
-    sym = symbols(units, best_len, best_disp, use_match, committed)
-    lengths, codes = code_tables(sym)
-    codelen = lookup(lengths, codes, sym)
-    return assemble_payload(best_len, best_disp, use_match, committed,
-                            lengths, codelen)
+    with span("xh.find_matches", "compute"):
+        best_len, best_disp, use_match, okpos = find_matches(
+            units, ulen, match, max_disp=None)
+    with span("xh.greedy_commit", "compute"):
+        committed = greedy_commit(use_match, best_len, okpos)
+    with span("xh.symbols", "compute"):
+        sym = symbols(units, best_len, best_disp, use_match, committed)
+    with span("xh.code_tables", "compute"):
+        lengths, codes = code_tables(sym)
+    with span("xh.lookup", "compute"):
+        codelen = lookup(lengths, codes, sym)
+    with span("xh.assemble_payload", "compute"):
+        return assemble_payload(best_len, best_disp, use_match, committed,
+                                lengths, codelen)
 
 
 def floor_log2(x: torch.Tensor) -> torch.Tensor:
@@ -736,6 +731,7 @@ def compress_units(units, unit_size=BLOCK, *, device="cuda") -> list:
         return []
     if any(len(u) > unit_size for u in units):
         raise ArgError("unit larger than unit_size")
+    count("xh.units", len(units))
     return row_streams(*encode_batch(*unit_rows(units, unit_size, dev)))
 
 

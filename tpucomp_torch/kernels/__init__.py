@@ -2,5 +2,7 @@
 ``resolve``, ``gather``, ``runs``, ``sort`` and ``commit`` holds wrappers
 that launch a CUDA kernel (``csrc/*.cu``) on CUDA tensors and run the
 plain PyTorch version beside it on CPU tensors; each wrapper counts its
-launches in ``<wrapper>.launches``.  ``huffman``, ``match`` (around the
+launches in ``<wrapper>.launches`` through ``stats.launched``, which also
+counts ``launches.<wrapper>`` on the open request while a profiler
+session records.  ``huffman``, ``match`` (around the
 ``sort`` kernel) and ``common`` are plain PyTorch."""

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from . import _build
 
 SEG = 128  # positions a thread of the kernel walks: csrc/greedy_commit.cu
@@ -113,7 +114,8 @@ def greedy_commit(is_match: torch.Tensor, best_len: torch.Tensor,
         return greedy_commit_ref(is_match, best_len, okpos)
     launched, committed, _, _, rounds = _walk(is_match, best_len, okpos,
                                               False)
-    greedy_commit.launches += launched
+    if launched:
+        stats.launched(greedy_commit)
     greedy_commit.rounds = rounds
     return committed
 
@@ -129,7 +131,8 @@ def greedy_commit_layout(is_match: torch.Tensor, best_len: torch.Tensor,
         return greedy_commit_ref(is_match, best_len, okpos, layout=True)
     launched, committed, t_after, data_before, rounds = _walk(
         is_match, best_len, okpos, True)
-    greedy_commit_layout.launches += launched
+    if launched:
+        stats.launched(greedy_commit_layout)
     greedy_commit_layout.rounds = rounds
     return committed, t_after, data_before
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from . import _build
 from .common import fill_records_delta as fill_records_delta_ref
 
@@ -125,7 +126,7 @@ def fill_records_delta2(rec_pos: torch.Tensor, rec_val: torch.Tensor,
                        ovf],
                       [N, R, U, min(keep, 1 << 30), T, TS, threads,
                        _vec_in(rec_pos, rec_val), int(U % 4 == 0)])
-        fill_records_delta2.launches += 1
+        stats.launched(fill_records_delta2)
     return val, pos, ovf
 
 
@@ -149,7 +150,7 @@ def fill_records_delta(rec_pos: torch.Tensor, rec_val: torch.Tensor,
                       [rec_pos, rec_val, _summary(N, T, rec_pos), val],
                       [N, R, U, T, TS, threads, _vec_in(rec_pos, rec_val),
                        int(U % 4 == 0)])
-        fill_records_delta.launches += 1
+        stats.launched(fill_records_delta)
     return val
 
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from . import _build
 from .common import ARCHIVE_PROBE_BUDGET, FAR_TAG, MAX_RESOLVE_ROW, level_cap
 
@@ -90,7 +91,7 @@ def gather_rows(data: torch.Tensor, idx: torch.Tensor,
     out = torch.empty_like(ix)
     if N and Q:
         _build.launch("gather_rows", [src, ix, out], [N, K, Q, mask])
-        gather_rows.launches += 1
+        stats.launched(gather_rows)
     return out
 
 
@@ -165,7 +166,7 @@ def far_level(out: torch.Tensor, S=None, cap=None,
         _build.launch("far_level", [src, res],
                       [N * (U // S), S, U // S, cap or level_cap(S),
                        int(zero)])
-        far_level.launches += 1
+        stats.launched(far_level)
     return res
 
 
@@ -204,7 +205,7 @@ def far_row(out: torch.Tensor) -> torch.Tensor:
         scratch = torch.empty_like(src)
         _build.launch("far_row", [src, res, scratch, looped],
                       [N, U, level_cap(U)])
-        far_row.launches += 1
+        stats.launched(far_row)
     far_row.looped = looped
     return res
 
@@ -254,7 +255,7 @@ def far_probe(out: torch.Tensor,
     res = torch.empty_like(src)
     if N:
         _build.launch("far_probe", [src, res], [N, U, rounds])
-        far_probe.launches += 1
+        stats.launched(far_probe)
     return res
 
 

@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import torch
 
+from ..stats import count, span
+from ..util import any_set
+
 MAX_CODE_LEN = 15
 NUM_SYMBOLS = 512
 _INF = 1 << 30  # tpucomp's cost of an empty queue slot or an unused leaf
@@ -57,7 +60,9 @@ def huffman_code_lengths(freqs: torch.Tensor) -> torch.Tensor:
     # nothing that is read, their positions merely kept inside ``q``.  A
     # step keeps only its two choices (leaf or node); the queue positions
     # follow from them after the loop.  The loop launches few ops a step:
-    # on the card each costs more host time than device time.
+    # on the card each costs more host time than device time.  Each step
+    # is a span of its own (``huffman.merge_step``), so that a trace names
+    # the host time between its ops.
     OFF = S + 2
     q = torch.cat([leaf_freq, torch.full((N, S + 3), _INF, **i64)], 1)
     # (lp + 1, nh, lp, nh + 1) as columns of q: their values are (lf1, nf0,
@@ -65,16 +70,19 @@ def huffman_code_lengths(freqs: torch.Tensor) -> torch.Tensor:
     pos = torch.tensor([1, OFF, 0, OFF + 1], **i64).repeat(N, 1)
     cap = torch.tensor([S + 1, 2 * S + 2, S + 1, 2 * S + 2], **i64)
     move = torch.tensor([[0, 2, 0, 2], [1, 1, 1, 1], [2, 0, 2, 0]], **i64)
-    steps = max(int(n_used.max()) - 1, 0) if N else 0
+    with span("sync.huffman_steps", "sync"):
+        steps = max(int(n_used.max()) - 1, 0) if N else 0
+    count("huffman.merge_steps", steps)
     took = torch.zeros((N, max(steps, 1), 2), dtype=torch.bool, device=dev)
     for s in range(steps):
-        v = q.gather(1, pos)
-        t1 = v[:, 2] <= v[:, 1]  # leaf lp against node nh
-        ab = torch.where(t1[:, None], v[:, 0:2], v[:, 2:4])
-        t12 = torch.stack([t1, ab[:, 0] <= ab[:, 1]], 1)
-        q[:, OFF + s] = torch.minimum(v[:, 2], v[:, 1]) + ab.amin(1)
-        took[:, s] = t12
-        pos = torch.minimum(pos + move[t12.sum(1)], cap)
+        with span("huffman.merge_step", "compute"):
+            v = q.gather(1, pos)
+            t1 = v[:, 2] <= v[:, 1]  # leaf lp against node nh
+            ab = torch.where(t1[:, None], v[:, 0:2], v[:, 2:4])
+            t12 = torch.stack([t1, ab[:, 0] <= ab[:, 1]], 1)
+            q[:, OFF + s] = torch.minimum(v[:, 2], v[:, 1]) + ab.amin(1)
+            took[:, s] = t12
+            pos = torch.minimum(pos + move[t12.sum(1)], cap)
     made = torch.arange(max(steps, 1), **i64) < (n_used[:, None] - 1)
     t1, t2 = took[:, :, 0] & made, took[:, :, 1] & made
     # every made step consumes two queue heads: before step s, lp leaves
@@ -112,14 +120,17 @@ def huffman_code_lengths(freqs: torch.Tensor) -> torch.Tensor:
     cnt = torch.zeros((N, MAX_CODE_LEN + 1), **i64)
     cnt.scatter_add_(1, depths, (depths > 0).long())
     weight = 1 << (MAX_CODE_LEN - lvl)
-    while True:
-        over = (cnt * weight).sum(1) > (1 << MAX_CODE_LEN)
-        if not bool(over.any()):
-            break
-        has = (cnt > 0) & (lvl < MAX_CODE_LEN) & (lvl > 0)
-        lsel = torch.where(has, lvl, 0).amax(1, keepdim=True)
-        cnt = (cnt - ((lvl == lsel) & over[:, None]).long()
-               + ((lvl == lsel + 1) & over[:, None]).long())
+    rounds = 0
+    over = (cnt * weight).sum(1) > (1 << MAX_CODE_LEN)
+    while any_set(over, "sync.huffman_repair"):
+        with span("huffman.repair_round", "compute"):
+            has = (cnt > 0) & (lvl < MAX_CODE_LEN) & (lvl > 0)
+            lsel = torch.where(has, lvl, 0).amax(1, keepdim=True)
+            cnt = (cnt - ((lvl == lsel) & over[:, None]).long()
+                   + ((lvl == lsel + 1) & over[:, None]).long())
+            over = (cnt * weight).sum(1) > (1 << MAX_CODE_LEN)
+        rounds += 1
+    count("huffman.repair_rounds", rounds)
 
     # leaf k (k-th rarest) gets the k-th of 15 x cnt[15], 14 x cnt[14], ...
     from_deep = cnt.flip(1).cumsum(1).flip(1)

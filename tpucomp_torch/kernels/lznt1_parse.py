@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from . import _build
 from .common import SENT_KEY
 
@@ -140,7 +141,7 @@ def lznt1_parse(payload: torch.Tensor, plen: torch.Tensor,
         _build.launch("lznt1_parse",
                       [payload, plen, is_comp, rec_pos, rec_val, p_final, err,
                        windows], [N, P])
-        lznt1_parse.launches += 1
+        stats.launched(lznt1_parse)
     lznt1_parse.windows = windows
     return rec_pos, rec_val, p_final, err
 

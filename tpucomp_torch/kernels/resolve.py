@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from . import _build
 from .common import FAR_TAG, MAX_RESOLVE_ROW
 
@@ -86,7 +87,7 @@ def resolve_near(is_copy: torch.Tensor, disp: torch.Tensor,
     if N:
         _build.launch("resolve_near", [is_copy, disp, litv, out],
                       [N * (U // SEG), U // SEG])
-        resolve_near.launches += 1
+        stats.launched(resolve_near)
     return out
 
 

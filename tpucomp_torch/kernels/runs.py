@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from . import _build
 
 # the encoders' widest row, the stream encoder's [8 KiB history | 64 KiB
@@ -76,7 +77,7 @@ def run_matchlens(x: torch.Tensor, disps) -> list[torch.Tensor]:
             ds += (0,) * (DISPS_PER_LAUNCH - len(ds))
             _build.launch("run_matchlens", [x, first, out[k]],
                           [N, U, min(DISPS_PER_LAUNCH, len(disps) - k), *ds])
-            run_matchlens.launches += 1
+            stats.launched(run_matchlens)
     return list(out.unbind(0))
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from . import _build
 
 SMEM_ROW = 1 << 13  # the widest row sorted in one block's shared memory
@@ -102,7 +103,7 @@ def sort_rows(operands) -> tuple[torch.Tensor, ...]:
         _build.launch(name, [ops[0], outs[0], *scratch],
                       [N, U, len(pay_in[group]), *tile],
                       tables=(pay_in[group], pay_out[group]))
-        sort_rows.launches += 1
+        stats.launched(sort_rows)
     return outs
 
 

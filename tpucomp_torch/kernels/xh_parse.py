@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from . import _build
 from .common import MAX_ROW, SENT_KEY
 
@@ -322,7 +323,7 @@ def xh_parse(body, blen, out_len, ss, lim15, rbf, sym_by_rank, U: int,
         _build.launch("xh_parse", ins + [order, rec_pos, rec_val, p_final,
                                          err, span, rounds, scratch],
                       [N, Pb, U])
-        xh_parse.launches += 1
+        stats.launched(xh_parse)
         xh_parse.rounds = rounds
     out = (rec_pos, rec_val, p_final, err)
     return (*out, span) if want_span else out

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from . import _build
 from .common import SENT_KEY
 
@@ -232,7 +233,7 @@ def xp_parse(payload: torch.Tensor, plen: torch.Tensor,
         _build.launch("xp_parse",
                       [payload, plen, out_len, rec_pos, rec_val, p_final, err,
                        steps, entries], [N, P, U, max_words])
-        xp_parse.launches += 1
+        stats.launched(xp_parse)
         xp_parse.steps = steps
     return rec_pos, rec_val, p_final, err
 

@@ -1,4 +1,5 @@
-"""Per-run stats and an optional profiler scope: ``tpucomp.stats``.
+"""Per-run stats, an optional profiler scope (``tpucomp.stats``), and the
+port's spans and counters.
 
 ``RunStats`` and ``timed`` are tpucomp's.  ``device_trace`` is a
 ``torch.profiler`` scope in place of ``jax.profiler``'s: it records the
@@ -14,17 +15,41 @@ those (``scripts/trace_probe.py``).  So ``device_trace`` opens each
 session on the card with ``PRIMER_LAUNCHES`` small kernels under a
 ``PRIMER`` annotation, and warns when a kernel launched after them still
 has no device record in the trace.
+
+Spans and counters inside the port (:func:`span`, :func:`count`) record
+only while a ``torch.profiler`` session records (``device_trace``, or any
+other), and cost one read of the profiler's flag otherwise.  A span then
+emits a host op of its name into the profiler's trace, beside the aten
+ops, kernels and copies it holds, and keeps a record in memory
+(:func:`spans`): its name and kind, thread, start and end on
+``time.time_ns()`` (the clock of the trace's ``ts`` plus its
+``baseTimeNanoseconds``), its parent, the request it belongs to (every
+span opened under one outermost span, the API call), and the counters
+added while it was the innermost span.  Kinds:
+
+* ``call``: a public entry point, the root of a request;
+* ``stage``: host steps over bytes (Python and NumPy);
+* ``compute``: the host issuing device work (kernels, plain torch ops);
+* ``copy``: a host-to-card copy (counts ``h2d_bytes``);
+* ``sync``: the host blocked on the card, a copy back included (counts
+  ``d2h_bytes``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import json
 import os
+import threading
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
 
 
 @dataclass
@@ -132,3 +157,167 @@ def device_trace(logdir: Optional[str] = None, device=None):
             warnings.warn(f"device_trace: {len(lost)} kernel launches have "
                           f"no device record in {path} (the profiler "
                           "dropped them)", RuntimeWarning, stacklevel=3)
+
+
+# -- spans and counters --------------------------------------------------
+
+KINDS = ("call", "stage", "compute", "copy", "sync")
+# records a thread keeps; the spans past them are counted in ``dropped``
+MAX_RECORDS = 1 << 16
+dropped = 0
+
+_local = threading.local()
+_stores: list = []  # every thread's _Store, for spans() and clear()
+_lock = threading.Lock()
+_requests = itertools.count(1)
+
+
+class Span(NamedTuple):
+    """One span's record (:func:`spans`): ``parent`` is the index of its
+    parent in the same list (None for a request's root); ``counters``
+    are those added while it was the innermost open span."""
+    name: str
+    kind: str
+    thread: int
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    request: int
+    counters: Dict[str, int]
+
+
+class _Record:
+    __slots__ = ("name", "kind", "start", "end", "parent", "request",
+                 "counters")
+
+    def __init__(self, name, kind, start, parent, request):
+        self.name, self.kind, self.start = name, kind, start
+        self.end, self.parent, self.request = start, parent, request
+        self.counters = None
+
+
+class _Store:
+    """One thread's records and its open spans (a record, or None for a
+    span past ``MAX_RECORDS``, with the request it belongs to)."""
+
+    def __init__(self):
+        self.thread = threading.get_native_id()
+        self.alive = threading.current_thread().is_alive
+        self.records = []
+        self.stack = []
+
+
+def _store() -> _Store:
+    try:
+        return _local.store
+    except AttributeError:
+        store = _local.store = _Store()
+        with _lock:
+            _stores.append(store)
+        return store
+
+
+class span:
+    """``with span(name, kind):`` records the block (see the module's
+    docstring) while a profiler session records; otherwise it reads one
+    flag and records nothing.  ``@span(name, kind)`` records each call of
+    a function, its locals' release included."""
+
+    __slots__ = ("name", "kind", "_rf", "_store")
+
+    def __init__(self, name: str, kind: str):
+        self.name = name
+        self.kind = kind
+
+    def __enter__(self):
+        if not _profiler._is_profiler_enabled:
+            self._rf = None
+            return self
+        global dropped
+        store = self._store = _store()
+        stack = store.stack
+        start = time.time_ns()
+        if stack:
+            parent, request = stack[-1]
+        else:
+            parent, request = None, next(_requests)
+        if len(store.records) < MAX_RECORDS:
+            rec = _Record(self.name, self.kind, start, parent, request)
+            store.records.append(rec)
+        else:
+            rec = None
+            with _lock:
+                dropped += 1
+        stack.append((rec, request))
+        self._rf = _RecordFunctionFast(self.name)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._rf is None:
+            return False
+        self._rf.__exit__(None, None, None)
+        rec, _ = self._store.stack.pop()
+        if rec is not None:
+            rec.end = time.time_ns()
+        return False
+
+    def __call__(self, fn):
+        name, kind = self.name, self.kind
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name, kind):
+                return fn(*args, **kwargs)
+        return call
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of this thread's innermost open span
+    while a profiler session records; nothing otherwise."""
+    if not _profiler._is_profiler_enabled:
+        return
+    stack = _store().stack
+    if stack and stack[-1][0] is not None:
+        rec = stack[-1][0]
+        if rec.counters is None:
+            rec.counters = {}
+        rec.counters[name] = rec.counters.get(name, 0) + n
+
+
+def launched(fn, n: int = 1) -> None:
+    """A kernel wrapper ``fn`` launched ``n`` kernels: adds them to
+    ``fn.launches`` (every thread's) and, while a profiler session
+    records, to the counter ``launches.<fn's name>`` of the open span."""
+    with _lock:
+        fn.launches += n
+    if _profiler._is_profiler_enabled:
+        count("launches." + fn.__name__, n)
+
+
+def spans() -> List[Span]:
+    """Every thread's records, parents before their children; nothing is
+    cleared."""
+    with _lock:
+        stores = list(_stores)
+    out = []
+    for store in stores:
+        recs = list(store.records)
+        index = {id(r): len(out) + k for k, r in enumerate(recs)}
+        out.extend(Span(r.name, r.kind, store.thread, r.start, r.end,
+                        None if r.parent is None
+                        else index.get(id(r.parent)),
+                        r.request, dict(r.counters or {}))
+                   for r in recs)
+    return out
+
+
+def clear() -> None:
+    """Drop every record and the ``dropped`` count (call it with no span
+    open)."""
+    global dropped
+    with _lock:
+        for store in _stores:
+            store.records = []
+        _stores[:] = [s for s in _stores if s.alive() or s.stack]
+        dropped = 0

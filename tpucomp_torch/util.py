@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .stats import count, span
+
 
 def resolve_device(device) -> torch.device:
     """``torch.device`` for a public entry point's ``device`` argument.
@@ -20,6 +22,31 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array copied to ``device``: a ``copy.h2d`` span counting
+    its bytes (``h2d_bytes``)."""
+    t = torch.from_numpy(a)
+    with span("copy.h2d", "copy"):
+        count("h2d_bytes", t.nbytes)
+        return t.to(device)
+
+
+def to_host(t: torch.Tensor, site: str) -> np.ndarray:
+    """A device tensor copied back as a NumPy array: the sync span
+    ``site`` counting its bytes (``d2h_bytes``)."""
+    with span(site, "sync"):
+        count("d2h_bytes", t.nbytes)
+        return t.cpu().numpy()
+
+
+def any_set(t: torch.Tensor, site: str) -> bool:
+    """Whether any element of a device tensor is set: the sync span
+    ``site``."""
+    with span(site, "sync"):
+        return bool(t.any())
+
+
+@span("util.unit_rows", "stage")
 def unit_rows(units: list, width: int, device):
     """Byte units of at most ``width`` bytes -> (uint8 [N, width] rows,
     zero-padded, and int32 [N] lengths) on ``device``."""
@@ -28,10 +55,12 @@ def unit_rows(units: list, width: int, device):
     for i, u in enumerate(units):
         rows[i, :len(u)] = np.frombuffer(u, np.uint8)
         ulen[i] = len(u)
-    return torch.from_numpy(rows).to(device), torch.from_numpy(ulen).to(device)
+    return to_device(rows, device), to_device(ulen, device)
 
 
+@span("util.row_streams", "stage")
 def row_streams(payload: torch.Tensor, plen: torch.Tensor) -> list:
     """Each row's first ``plen[i]`` bytes, as bytes, on the host."""
-    payload, plen = payload.cpu().numpy(), plen.cpu().numpy()
+    payload = to_host(payload, "sync.row_payload")
+    plen = to_host(plen, "sync.row_plen")
     return [payload[i, :plen[i]].tobytes() for i in range(len(plen))]
