@@ -120,7 +120,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``torch.gather``; the run matcher, the row sort of the hash key and of
    the un-sort (no window bound, each beside ``torch.sort`` (+
    ``gather``), with its digit passes) and the greedy walk on the XH
-   rows (with its rounds).  Each against its plain version, equal exactly, with both times.
+   rows (with its rounds); the Huffman table kernel on the first 512
+   rows of the histograms and on one row, a call and back to back.
+   Each against its plain version, equal exactly, with both times.
 12. XH encode main path, with every launch count set to 0 first:
    ``compress_batch("xpress_huff", ...)`` of the 514 units and a one-shot
    ``compress`` of 200 KiB (four blocks); a sub-batch of 32 units (the
@@ -184,8 +186,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    Xpress and XH archives (depth 2) by the port's copy of the native
    encoder, equal to the native C build's streams, decoding back with
    ``fast_resolve`` (``far_probe`` must launch); ``MixedBatch`` of five
-   interleaved jobs and ``ShardedLZNT1`` of the corpus; all twelve kernels
-   must have launched.  Then the first 8 MiB through a one-rank NCCL
+   interleaved jobs and ``ShardedLZNT1`` of the corpus; all thirteen
+   kernels must have launched.  Then the first 8 MiB through a one-rank NCCL
    group in this process (the all-gather on the card) and through two
    worker processes in a gloo group, both on cuda:0, their archives equal
    to the one-rank ones by sha256, with their times; GB/s of
@@ -1727,7 +1729,8 @@ def xh_encode_phases(dev, units, native, kernels) -> dict:
     from tpucomp_torch.codecs import xpress as xp
     from tpucomp_torch.codecs import xpress_huff as xh
     from tpucomp_torch.config import DEFAULT as MATCH
-    from tpucomp_torch.kernels import commit, gather, match, runs, sort
+    from tpucomp_torch.kernels import (commit, common, gather, huffman,
+                                       match, runs, sort)
 
     units = xh_units(units, np.random.default_rng(SEED + 1))  # phase 5's
     lens = [len(u) for u in units]
@@ -1769,6 +1772,20 @@ def xh_encode_phases(dev, units, native, kernels) -> dict:
     lengths, codes = xh.code_tables(sym)
     print(f"xh encode: {int(committed.sum())} tokens, "
           f"{int((sym < 256).sum())} literals")
+    # the code tables at the main path's batch of 512 rows and at one row,
+    # beside clone() of the counts and fill_ of the two table planes
+    freqs = common.histogram(sym, xh.NUM_SYMBOLS)
+    for rows in (freqs[:512].contiguous(), freqs[:1].contiguous()):
+        planes = [torch.empty_like(rows) for _ in range(2)]
+        burst_case(
+            kernels, "huffman_tables", f"XH encode, {rows.shape[0]} rows",
+            huffman.huffman_tables, huffman.huffman_tables_ref, (rows,),
+            lambda: (rows.clone(), [p.fill_(0) for p in planes]),
+            "clone() of the counts + fill_ of the table planes",
+            replaces="none: tpucomp/kernels/huffman.py huffman_code_lengths "
+                     "and canonical_from_lengths (XLA)",
+            extra={"rows": rows.shape[0]})
+    del freqs, rows, planes
     # the lookup: (code << 5) | length of each position's symbol
     table = (codes << 5) | lengths
     idx = sym.clamp(max=xh.NUM_SYMBOLS - 1)
@@ -1809,7 +1826,8 @@ def xh_encode_phases(dev, units, native, kernels) -> dict:
                 "sort_rows": (sort.sort_rows,),
                 "greedy_commit": (commit.greedy_commit,
                                   commit.greedy_commit_layout),
-                "gather_rows": (gather.gather_rows,)}
+                "gather_rows": (gather.gather_rows,),
+                "huffman_tables": (huffman.huffman_tables,)}
     rng = np.random.default_rng(SEED + 4)
     n_corpus = len(units) - 2
     sub_idx = sorted(rng.choice(n_corpus, XHE_SUB_CORPUS,
@@ -3436,7 +3454,7 @@ def main() -> None:
         k["fuzz"] = fuzz_launches.get(k["name"], 0)
         k["launches"] += k["fuzz"]
         k["max_abs_err"] = max(k["max_abs_err"], fuzz_errs.get(k["name"], 0))
-    require(len(kernels) == 12, f"{len(kernels)} kernels in the line, not 12")
+    require(len(kernels) == 13, f"{len(kernels)} kernels in the line, not 13")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - started:.1f} s ({smi})")
 

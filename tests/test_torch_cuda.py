@@ -19,19 +19,22 @@ import pytest
 import torch
 
 import tpucomp_torch
+from tpucomp_torch import stats
 from chip_smoke import XH_VECTOR, XH_VECTOR_INPUT_SHA256, Native
 from chip_smoke import XP_STREAM_INPUT_SHA256, XP_STREAM_SHA256
 from tpucomp_torch.codecs import lznt1 as lz
 from tpucomp_torch.codecs import xpress as xp
 from tpucomp_torch.codecs import xpress_huff as xh
 from tpucomp_torch.kernels import commit, common, fill, gather, lznt1_parse
-from tpucomp_torch.kernels import match, resolve, runs, sort, xh_parse
-from tpucomp_torch.kernels import xp_parse
+from tpucomp_torch.kernels import huffman, match, resolve, runs, sort
+from tpucomp_torch.kernels import xh_parse, xp_parse
 from _spans import totals, traced
 from test_torch_commit import segment_walk, walk_rows
 from test_torch_far_row import CASES as FAR_CASES, WIDTHS as FAR_WIDTHS
 from test_torch_far_row import NARROW, case_rows, far_row_model, narrow_rows
 from test_torch_far_probe import CASES as PROBE_CASES
+from test_torch_huffman_tables import CASES as HUFF_CASES
+from test_torch_huffman_tables import _seeded, case_rows as huff_rows
 from test_torch_far_probe import case_rows as probe_rows
 from test_torch_fill import CASES as FILL_CASES, KEEP_DISTINCT
 from test_torch_fill import case_rows as fill_rows, edges_of
@@ -1050,6 +1053,132 @@ def test_xh_encode_on_card_matches_cpu_and_round_trips(dev):
         assert not u or native.xh_decompress(s, len(u)) == u
     s = tpucomp_torch.compress("xpress_huff", data)
     assert s == tpucomp_torch.compress("xpress_huff", data, device="cpu")
+
+
+# ---- the Huffman table kernel -----------------------------------------------
+
+def _hold_tables(freqs, dev):
+    """The kernel's (lengths, codes) of int32 [N, 512] ``freqs`` equal to
+    the plain version's, in one launch."""
+    before = huffman.huffman_tables.launches
+    got = huffman.huffman_tables(freqs.to(dev))
+    assert huffman.huffman_tables.launches == before + (freqs.shape[0] > 0)
+    _assert_equal(got, huffman.huffman_tables_ref(freqs.cpu()))
+
+
+@pytest.mark.parametrize("name", HUFF_CASES)
+def test_huffman_tables_kernel_on_cases(name, dev):
+    _hold_tables(huff_rows(name), dev)
+
+
+@pytest.mark.parametrize("N", [0, 1, 3, 512, 546])
+def test_huffman_tables_kernel_on_seeded_rows(N, dev):
+    rows = _seeded(np.random.default_rng(2400 + N), N)
+    _hold_tables(torch.from_numpy(rows.astype(np.int32)), dev)
+
+
+def test_huffman_tables_kernel_beyond_the_bound(dev):
+    """A row whose counts sum to 2^30 or more, the empty slot's cost, gets
+    lengths and codes of -1; the rows beside it, one just below the
+    bound and one with negative (unused) counts among them, are the plain
+    version's."""
+    near = huff_rows("near_2_21")[0]
+    over = torch.zeros(huffman.NUM_SYMBOLS, dtype=torch.int32)
+    over[:2] = 1 << 29
+    below = over.clone()
+    below[1] -= 1
+    neg = huff_rows("zipf")[0].clone()
+    neg[::5] = -5
+    freqs = torch.stack([near, over, below, neg, huff_rows("zipf")[1] << 18])
+    assert (freqs.long().sum(1) >= 1 << 30).tolist() == [
+        False, True, False, False, True]
+    got = huffman.huffman_tables(freqs.to(dev))
+    torch.cuda.synchronize()
+    for k in (1, 4):
+        assert all((g[k] == -1).all() for g in got)
+    keep = [0, 2, 3]
+    _assert_equal([g[keep] for g in got],
+                  huffman.huffman_tables_ref(freqs[keep]))
+
+
+def _hiberfil_units(n, seed):
+    """``n`` units of 64 KiB from a seeded hibernation-file-like mix:
+    16 pages of 4 KiB a unit, each zeros (30%), code (20%: x86 idioms
+    with random operands), heap (25%: 8-byte words, pointers of a few
+    regions, small integers and zeros), text (15%) or random bytes
+    (10%); uint8 [n, 65536]."""
+    from benchmarks.corpus import _synthetic
+
+    P = 4096
+    r = np.random.default_rng(seed)
+    text = np.frombuffer(_synthetic(1 << 20, seed), np.uint8)
+    ops = [b"\x55", b"\x48\x89\xe5", b"\xc3", b"\x48\x83\xec", b"\xe8",
+           b"\x48\x8b\x45", b"\x89\x45", b"\x0f\x84", b"\x31\xc0", b"\x90"]
+    regions = (0x7FF000000000 + r.integers(0, 1 << 24, 8) * 4096).astype(
+        np.uint64)
+    m = 1 << 17
+    operand = r.integers(0, 256, (m, 2), dtype=np.uint8)
+    code = np.frombuffer(b"".join(
+        ops[o] + operand[i, :w].tobytes() for i, (o, w) in enumerate(zip(
+            r.integers(0, len(ops), m).tolist(),
+            r.integers(0, 3, m).tolist()))), np.uint8)
+    kinds = r.choice(5, n * 16, p=[0.30, 0.20, 0.25, 0.15, 0.10])
+    pages = np.zeros((n * 16, P), np.uint8)
+    for k, kind in enumerate(kinds):
+        if kind == 1:
+            at = r.integers(0, len(code) - P)
+            pages[k] = code[at:at + P]
+        elif kind == 2:
+            w = r.integers(0, 3, P // 8)
+            words = np.where(
+                w == 0, regions[r.integers(0, 8, P // 8)]
+                + (r.integers(0, 1 << 12, P // 8) * 16).astype(np.uint64),
+                np.where(w == 1, r.integers(0, 256, P // 8), 0)
+                .astype(np.uint64))
+            pages[k] = words.astype("<u8").view(np.uint8)
+        elif kind == 3:
+            at = r.integers(0, len(text) - P)
+            pages[k] = text[at:at + P]
+        elif kind == 4:
+            pages[k] = r.integers(0, 256, P, dtype=np.uint8)
+    return torch.from_numpy(pages.reshape(n, 16 * P))
+
+
+def test_huffman_tables_kernel_on_hiberfil_histograms(dev):
+    """The histograms of a batch of 512 hibernation-file sets, made by the
+    encoder's stages on the card, through the kernel and the plain
+    version; then one traced ``encode_batch`` of 8 of the sets: the same
+    stream bytes as on the CPU, one launch for all rows, no merge step
+    issued from the host, and no host sync of the tables."""
+    units = _hiberfil_units(512, 2400)
+    x = units.to(dev)
+    ulen = torch.full((512,), units.shape[1], dtype=torch.int32, device=dev)
+    best_len, best_disp, use_match, okpos = xp.find_matches(
+        x, ulen, max_disp=None)
+    committed = commit.greedy_commit(use_match, best_len, okpos)
+    sym = xh.symbols(x, best_len, best_disp, use_match, committed)
+    freqs = common.histogram(sym, huffman.NUM_SYMBOLS)
+    assert int((freqs > 0).sum(1).min()) >= 1
+    _hold_tables(freqs.cpu(), dev)
+    sub = units[::64].clone()
+    sub[-1, 4096 * 3:] = 0
+    sub_len = torch.tensor([units.shape[1]] * 7 + [4096 * 3],
+                           dtype=torch.int32)
+
+    def call():
+        with stats.span("test.call", "call"):
+            return xh.encode_batch(sub.to(dev), sub_len.to(dev))
+
+    got, records = traced(call)
+    _assert_equal(got, xh.encode_batch(sub, sub_len))
+    n = totals(records)
+    assert n["launches.huffman_tables"] == 1
+    assert n["huffman.kernel_rows"] == sub.shape[0]
+    assert n["huffman.merge_steps"] == 0
+    assert "huffman.repair_rounds" not in n
+    assert not {r.name for r in records} & {
+        "huffman.merge_step", "huffman.repair_round", "sync.huffman_steps",
+        "sync.huffman_repair"}
 
 
 # ---- the one-shot XH decode: [history | block] rows of 131072 ---------------

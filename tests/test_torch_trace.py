@@ -243,6 +243,24 @@ def test_merge_steps_and_repair_rounds(rows, deep):
     assert torch.equal(lengths, huffman.huffman_code_lengths(freqs))
 
 
+def test_huffman_tables_on_the_cpu_counts_the_plain_steps():
+    """On CPU tensors ``huffman_tables`` runs the plain version: its merge
+    steps and repair rounds are counted as above, and no kernel row."""
+    freqs = _fib_freqs()
+
+    def call():
+        with stats.span("test.call", "call"):
+            return huffman.huffman_tables(freqs)
+
+    (lengths, _), records = traced(call)
+    n = totals(records)
+    assert n["huffman.merge_steps"] == int((freqs > 0).sum(1).max()) - 1
+    assert n["huffman.repair_rounds"] > 0
+    assert "huffman.kernel_rows" not in n
+    assert "launches.huffman_tables" not in n
+    assert torch.equal(lengths, huffman.huffman_code_lengths(freqs))
+
+
 def test_two_threads_keep_their_requests_apart():
     inputs = [_lznt1(1), _lznt1(2)]
     got = [None, None]

@@ -34,8 +34,8 @@ whose streams equal tpucomp's byte for byte at the same
   greedy commit walk (kernel)
   symbols               -> a literal byte, or 256 | offset bits << 4 |
                            length nibble, per committed token
-  code tables           -> histogram, two-queue Huffman lengths with the
-                           15-bit repair, canonical codes (plain torch)
+  code tables (kernel)  -> histogram, two-queue Huffman lengths with the
+                           15-bit repair, canonical codes
   lookup (kernel)       -> each token's (code, length) by the row gather
   layout                -> the lazy-flush 16-bit word writer in closed
                            form: bit offsets by cumsums, word planes and
@@ -92,7 +92,7 @@ from ..kernels.gather import gather_rows
 from ..kernels.huffman import (
     NUM_SYMBOLS,
     canonical_from_lengths,
-    huffman_code_lengths,
+    huffman_tables,
     level_tables,
     rank_to_symbol_table,
     unpack_table,
@@ -602,8 +602,7 @@ def symbols(units, best_len, best_disp, use_match, committed):
 def code_tables(sym: torch.Tensor):
     """Each row's code lengths and canonical codes, int32 [N, 512] each,
     from the histogram of its symbols."""
-    lengths = huffman_code_lengths(histogram(sym, NUM_SYMBOLS))
-    return lengths, canonical_from_lengths(lengths)[0]
+    return huffman_tables(histogram(sym, NUM_SYMBOLS))
 
 
 def lookup(lengths, codes, sym):

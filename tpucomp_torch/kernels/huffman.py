@@ -7,6 +7,11 @@ so plain tensor code here), of ``codecs/xpress_huff._unpack_table``, and
 of the table prep that ``xh_pallas.parse_records`` does before its kernel
 ([MS-XCA] §2.1.2).
 
+:func:`huffman_tables` builds the encoder's tables (lengths and codes) of
+every row: on CUDA tensors in one launch of ``csrc/huffman_tables.cu``, a
+block a row; on CPU tensors by :func:`huffman_tables_ref`, the plain
+functions below.
+
 A symbol's canonical rank is its place in (length, symbol) order.  Per
 code length l (1..15), ``fc[l]`` is the first code of that length,
 ``br[l]`` the rank of its first symbol and ``lim[l] = fc[l] + cnt[l]``.
@@ -16,8 +21,10 @@ from __future__ import annotations
 
 import torch
 
+from .. import stats
 from ..stats import count, span
 from ..util import any_set
+from . import _build
 
 MAX_CODE_LEN = 15
 NUM_SYMBOLS = 512
@@ -141,6 +148,47 @@ def huffman_code_lengths(freqs: torch.Tensor) -> torch.Tensor:
     length = torch.where(k < n_used[:, None], length, 0)
     out = torch.zeros((N, S), dtype=torch.int32, device=dev)
     return out.scatter_(1, leaf_sym, length.to(torch.int32))
+
+
+def huffman_tables_ref(freqs: torch.Tensor):
+    """Plain PyTorch version of :func:`huffman_tables`:
+    :func:`huffman_code_lengths`, then the codes of
+    :func:`canonical_from_lengths`."""
+    lengths = huffman_code_lengths(freqs)
+    return lengths, canonical_from_lengths(lengths)[0]
+
+
+def huffman_tables(freqs: torch.Tensor):
+    """int32 [N, 512] symbol counts -> (lengths, codes), int32 [N, 512]
+    each: every row's Huffman code lengths (:func:`huffman_code_lengths`)
+    and canonical codes (those of :func:`canonical_from_lengths`).
+
+    A row's counts must sum below 2^30, the cost of an empty queue slot
+    (tpucomp's bound; a row of XH symbols holds at most 65536).  On the
+    card a row at or above it gets lengths and codes of -1.
+
+    On the card one launch builds every row, with no host step that
+    depends on the data; it counts ``huffman.kernel_rows`` and, since the
+    host issues no merge step, ``huffman.merge_steps`` 0."""
+    if freqs.dtype != torch.int32 or freqs.dim() != 2 \
+            or freqs.shape[1] != NUM_SYMBOLS:
+        raise ValueError(f"huffman_tables takes int32 [N, {NUM_SYMBOLS}] "
+                         f"counts, got {freqs.dtype} {list(freqs.shape)}")
+    if not _build.use_kernel(freqs):
+        return huffman_tables_ref(freqs)
+    src = freqs.contiguous()
+    lengths = torch.empty_like(src)
+    codes = torch.empty_like(src)
+    N = src.shape[0]
+    count("huffman.merge_steps", 0)
+    count("huffman.kernel_rows", N)
+    if N:
+        _build.launch("huffman_tables", [src, lengths, codes], [N])
+        stats.launched(huffman_tables)
+    return lengths, codes
+
+
+huffman_tables.launches = 0
 
 
 def unpack_table(payload: torch.Tensor) -> torch.Tensor:

@@ -236,13 +236,12 @@ class span:
         global dropped
         store = self._store = _store()
         stack = store.stack
-        start = time.time_ns()
         if stack:
             parent, request = stack[-1]
         else:
             parent, request = None, next(_requests)
         if len(store.records) < MAX_RECORDS:
-            rec = _Record(self.name, self.kind, start, parent, request)
+            rec = _Record(self.name, self.kind, 0, parent, request)
             store.records.append(rec)
         else:
             rec = None
@@ -251,6 +250,11 @@ class span:
         stack.append((rec, request))
         self._rf = _RecordFunctionFast(self.name)
         self._rf.__enter__()
+        # the clock is read after every allocation above: a garbage
+        # collection one of them sets off (hundreds of ms on a large heap)
+        # would otherwise fall between the span's start and its op's
+        if rec is not None:
+            rec.start = rec.end = time.time_ns()
         return self
 
     def __exit__(self, *exc):
