@@ -2,13 +2,17 @@
 with one of the configuration's guarantees broken, whose outputs the
 check has to find wrong.
 
-* A read cell's control is the reference decoder with each match copied
-  as one block, as a memmove copies it: the bit-exact decode breaks
+* A read cell's control is the format's reference decoder
+  (``ref/<format>.py``) with ``block_copies``: each match copied as one
+  block, as a memmove copies it, so that the bit-exact decode breaks
   wherever a match overlaps its own output.
-* A write cell's control is the frozen encoder built to take a hash
-  candidate's 3 hashed bytes as matching without comparing them (a
-  finder that trusts its hash): a hash collision makes a match of other
-  bytes, and the stream no longer decodes to what was written.
+* A write cell's control is the format's frozen encoder
+  (``<format>_compress``) built with ``-DPORTBENCH_CONTROL``: the
+  encoders of ``frozen/codec.c`` then take a hash candidate's 3 hashed
+  bytes as matching without comparing them (a finder that trusts its
+  hash): a hash collision makes a match of other bytes, and the stream
+  no longer decodes to what was written.  A format whose source takes
+  no notice of ``PORTBENCH_CONTROL`` has no control, and is refused.
 
     python3 portbench/control.py --workload <cell> --seed <n> [--seed <m> ...]
 
@@ -34,26 +38,29 @@ if __package__ in (None, ""):
 from portbench import frozen, harness, inputs, ref, spec  # noqa: E402
 
 
-def control_output(config: dict, cell: dict, x: dict):
-    """What the control returns for pool input ``x``."""
+def control_output(config: dict, cell: dict, x: dict,
+                   root: str = spec.ROOT):
+    """What the control returns for pool input ``x``: the format's
+    reference and frozen encoder under ``root``, found by its name."""
     fmt, api = config["format"], cell["api"]
     if api == "decompress":
         return b"".join(ref.decode(fmt, [x["arg"]], [len(x["expect"])],
-                                   block_copies=True))
+                                   block_copies=True, root=root))
     if api == "decompress_batch":
-        return ref.decode(fmt, *x["arg"], block_copies=True)
-    encode = {"lznt1": frozen.lznt1_compress,
-              "xpress_huff": frozen.xh_compress}[fmt]
+        return ref.decode(fmt, *x["arg"], block_copies=True, root=root)
     if api == "compress":
-        return encode(x["arg"], control=True)
-    return [encode(u, control=True) for u in x["arg"]]
+        return frozen.compress(fmt, x["arg"], control=True, root=root)
+    return [frozen.compress(fmt, u, control=True, root=root)
+            for u in x["arg"]]
 
 
-def one(config: dict, cell: dict, seed: int, k: int) -> dict:
+def one(config: dict, cell: dict, seed: int, k: int,
+        root: str = spec.ROOT) -> dict:
     """The check's numbers for the control's output of input ``k``."""
-    x = inputs.make(config, cell, seed, k)
+    x = inputs.make(config, cell, seed, k, root)
     tally = harness.check(config, cell, seed, [x],
-                          [(0, control_output(config, cell, x))])
+                          [(0, control_output(config, cell, x, root))],
+                          root)
     return {"answers_checked": tally.checked, "answers_wrong": tally.wrong,
             "bytes_wrong": tally.bytes, "inputs_wrong": tally.inputs_wrong}
 

@@ -4,8 +4,10 @@
  * carries.  The benchmark makes its decode inputs with
  * these encoders, so the streams a read cell decodes never come from
  * the code under test, and stay the same whatever later changes make of
- * the program.  Built with the host C compiler into portbench/.build/
- * at first use (portbench/frozen/__init__.py).
+ * the program.  Built with the host C compiler, in one library with
+ * every frozen/*.c, into portbench/.build/ at first use
+ * (portbench/frozen/__init__.py), which finds a format's encoder by the
+ * exported name <format>_compress.
  *
  * API: each entry point returns the number of bytes written, or a
  * negative code: -1 data error, -3 output buffer too small, -5 an
@@ -640,6 +642,9 @@ int xh_compress_opt(const uint8_t *in, int in_len, uint8_t *out, int cap,
 int xh_compress(const uint8_t *in, int in_len, uint8_t *out, int cap) {
     return xh_compress_opt(in, in_len, out, cap, 0);
 }
+
+/* The format's encoder under the name the harness looks up. */
+int xpress_huff_compress(const uint8_t *in, int in_len, uint8_t *out, int cap) { return xh_compress(in, in_len, out, cap); }
 
 /* Shared XH parse loop.  ``disp``/``tokp`` (both-or-neither) record each
  * output byte's source displacement (0 for literals) and its token's

@@ -70,10 +70,11 @@ class Inputs:
     one with 0) from the moment of construction: the caller starts CUDA
     and the program meanwhile, then takes them with :meth:`get`."""
 
-    def __init__(self, config: dict, cell: dict, seed: int, helpers: int):
-        jobs = [(config, cell, seed, k) for k in range(cell["pool"])]
+    def __init__(self, config: dict, cell: dict, seed: int, helpers: int,
+                 root: str = spec.ROOT):
+        jobs = [(config, cell, seed, k, root) for k in range(cell["pool"])]
         if cell["api"] in inputs.READS:
-            frozen.build()
+            frozen.build(root=root)
         self._pool = None
         if helpers < 1:
             self._made = [inputs.make(*j) for j in jobs]
@@ -127,22 +128,22 @@ class Tally:
             self.bytes += sum(map(len, extra))
 
 
-def _readback(fmt: str, streams: list, lens: list) -> list:
+def _readback(fmt: str, streams: list, lens: list, root: str) -> list:
     """The reference's reading of ``streams``, a unit's answer None where
     the reference finds it malformed."""
     try:
-        return ref.decode(fmt, streams, lens)
+        return ref.decode(fmt, streams, lens, root=root)
     except ValueError:
         if len(streams) == 1:
             return [None]
         return [r for s, n in zip(streams, lens)
-                for r in _readback(fmt, [s], [n])]
+                for r in _readback(fmt, [s], [n], root)]
 
 
 def check(config: dict, cell: dict, seed: int, pool: list,
-          outputs: list) -> Tally:
+          outputs: list, root: str = spec.ROOT) -> Tally:
     """Compare the kept outputs, ``(pool index, output)`` pairs, with the
-    reference."""
+    reference of the configuration's format under ``root``."""
     fmt, api = config["format"], cell["api"]
     tally = Tally()
     if api in inputs.READS:
@@ -153,7 +154,7 @@ def check(config: dict, cell: dict, seed: int, pool: list,
                 len(x["units"]), min(cell["check_units"], len(x["units"])),
                 replace=False)
             got = _readback(fmt, [x["streams"][i] for i in pick],
-                            [len(x["units"][i]) for i in pick])
+                            [len(x["units"][i]) for i in pick], root)
             want = [x["units"][i] for i in pick]
             tally.inputs_wrong += sum(g != w for g, w in zip(got, want))
         for k, out in outputs:
@@ -175,7 +176,7 @@ def check(config: dict, cell: dict, seed: int, pool: list,
         x = pool[k]
         for n, out in enumerate(outs):
             if api == "compress":
-                tally.answers(_readback(fmt, [out], [len(x["arg"])]),
+                tally.answers(_readback(fmt, [out], [len(x["arg"])], root),
                               [x["arg"]])
                 continue
             units = x["units"]
@@ -186,7 +187,7 @@ def check(config: dict, cell: dict, seed: int, pool: list,
                 tally.answers(None, units)
                 continue
             tally.answers(_readback(fmt, [out[i] for i in pick],
-                                    [len(units[i]) for i in pick]),
+                                    [len(units[i]) for i in pick], root),
                           [units[i] for i in pick])
     return tally
 
@@ -199,19 +200,21 @@ def helpers_for(cell: dict) -> int:
 def run(cell: dict, config: dict, e2e: list, layer: list, seed: int,
         seconds: float, traced: bool, device="cuda", call=None,
         t_start: float | None = None, made: Inputs | None = None,
-        chips: int = 1) -> dict:
+        chips: int = 1, root: str = spec.ROOT) -> dict:
     """One run of the cell; returns the result line's object.
 
     ``call`` replaces the program's call (the tests plant faults with
     it); ``made`` is the pool of inputs, if already started (else it is
-    made here, in this process).
+    made here, in this process); ``root`` is the benchmark's root, where
+    the format's reference and frozen encoder and the metrics' readers
+    are found.
     """
     import torch
 
     t_torch = time.perf_counter()
     t_start = time.perf_counter() if t_start is None else t_start
     if made is None:
-        made = Inputs(config, cell, seed, 0)
+        made = Inputs(config, cell, seed, 0, root)
     nc = cell["clients"]
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -339,7 +342,7 @@ def run(cell: dict, config: dict, e2e: list, layer: list, seed: int,
     kept = [o for os_ in outputs for o in os_]
     if cuda:
         torch.cuda.empty_cache()
-    tally = check(config, cell, seed, pool, kept)
+    tally = check(config, cell, seed, pool, kept, root)
     failed = (sum(not r.ok for r in calls) if not traced
               else sum(out is None for _, out in kept))
     attempted = len(calls) if not traced else len(kept)
@@ -357,7 +360,7 @@ def run(cell: dict, config: dict, e2e: list, layer: list, seed: int,
         trace=trace.summarize(events, works) if traced else None)
     metrics = {}
     for m in (layer if traced else e2e):
-        value = spec.reader(m["name"])(ctx)
+        value = spec.reader(m["name"], root)(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     limits = {

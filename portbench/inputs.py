@@ -12,8 +12,8 @@ import numpy as np
 
 from . import frozen
 from .data import gen
+from .spec import ROOT
 
-ENCODERS = {"lznt1": frozen.lznt1_compress, "xpress_huff": frozen.xh_compress}
 WRITES = ("compress", "compress_batch")
 READS = ("decompress", "decompress_batch")
 
@@ -23,14 +23,16 @@ def _cut(data: bytes, lens) -> list:
     return [data[e - n:e] for e, n in zip(ends.tolist(), lens.tolist())]
 
 
-def make(config: dict, cell: dict, seed: int, k: int) -> dict:
+def make(config: dict, cell: dict, seed: int, k: int,
+         root: str = ROOT) -> dict:
     """Input ``k`` of the cell's pool.
 
     ``arg``: what the API call takes (bytes, or a list of unit bytes, or
     for ``decompress_batch`` the unit streams and their lengths).
     ``expect``: what a read call must return.  ``units`` / ``streams``:
-    the data's units and, for reads, the frozen encoder's stream of each
-    unit the call carries.  ``decoded`` / ``encoded``: the call's bytes
+    the data's units and, for reads, the stream of each unit the call
+    carries, from the frozen encoder of the configuration's format under
+    ``root``.  ``decoded`` / ``encoded``: the call's bytes
     on each side (a write's ``encoded`` is known only from its output).
 
     A read carries the units that the deployment stores compressed: a
@@ -54,8 +56,8 @@ def make(config: dict, cell: dict, seed: int, k: int) -> dict:
         return {"arg": arg, "units": units, "decoded": total}
     if api not in READS:
         raise ValueError(f"unknown API entry {api!r}")
-    encode = ENCODERS[config["format"]]
-    streams = [encode(u) for u in units]
+    streams = [frozen.compress(config["format"], u, root=root)
+               for u in units]
     keep = [len(s) + config["stored_raw_unless_saves"] <= len(u)
             for s, u in zip(streams, units)]
     units = [u for u, kp in zip(units, keep) if kp]

@@ -9,6 +9,9 @@ under test.
 ``block_copies=True`` is the control: each match is copied as one block,
 as a memmove would copy it, which breaks the bit-exact decode wherever a
 match overlaps its own output.
+
+LZNT1 streams end by themselves: :func:`decode_units` decodes a batch's
+unit streams as one joined stream and cuts it back into units.
 """
 
 from __future__ import annotations
@@ -121,3 +124,18 @@ def decode(stream: bytes, block_copies: bool = False) -> bytes:
         bit[act] += 1
     olen[lane] = op
     return out[np.arange(CHUNK) < olen[:, None]].tobytes()
+
+
+def decode_units(streams: list, out_lens: list,
+                 block_copies: bool = False) -> list:
+    """Each unit stream's decoded bytes: the streams decode as one joined
+    stream, cut back into units at ``out_lens`` (a unit of another length
+    shows as wrong bytes).  Raises ValueError on a malformed stream."""
+    joined = decode(b"".join(streams), block_copies)
+    out, at = [], 0
+    for n in out_lens:
+        out.append(joined[at:at + n])
+        at += n
+    if at != len(joined):
+        out[-1] += joined[at:]
+    return out

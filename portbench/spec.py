@@ -11,8 +11,21 @@ a file of its own, found by its name in ``BENCHMARK.json``:
   dot>.py``: the reader of a metric, a function ``read(ctx)`` that
   returns the metric's value, or None where it finds nothing to read.
 
-A later change adds a configuration, a cell or a metric by adding its
-file and its entry in ``BENCHMARK.json``; no file here names one.
+A configuration names its ``format``, whose parts are found by that name
+too:
+
+* ``ref/<format>.py``: the plain reference decoder, a function
+  ``decode_units(streams, out_lens, block_copies=False)`` that returns
+  each unit stream's decoded bytes and raises ValueError on a malformed
+  stream (``portbench.ref``);
+* a ``frozen/*.c`` that exports ``int <format>_compress(in, n, out,
+  cap)``, the frozen encoder that makes a read cell's streams and,
+  built with ``-DPORTBENCH_CONTROL``, which it honours, the write
+  cells' control (``portbench.frozen``).
+
+A later change adds a configuration, a cell, a metric or a format by
+adding its files and its entries in ``BENCHMARK.json``; no file here
+names one.
 """
 
 from __future__ import annotations

@@ -65,8 +65,7 @@ _ONE_AT_A_TIME = threading.Lock()
 
 def _encode(fmt, data):
     with _ONE_AT_A_TIME:
-        return {"lznt1": frozen.lznt1_compress,
-                "xpress_huff": frozen.xh_compress}[fmt](data)
+        return frozen.compress(fmt, data)
 
 
 def _stand_in(api, fmt):
