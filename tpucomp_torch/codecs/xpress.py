@@ -57,7 +57,9 @@ from ..kernels.match import extend_saturated, hash_best_match
 from ..kernels.resolve import SEG, resolve_near
 from ..kernels.runs import run_matchlens
 from ..kernels.xp_parse import xp_parse
-from ..util import resolve_device, row_streams, unit_rows
+from ..stats import count, span
+from ..util import (any_set, resolve_device, row_bytes, row_streams,
+                    staging_rows, to_device, to_host, unit_rows)
 from .xpress_huff import near_inputs
 
 MIN_MATCH = 3
@@ -104,6 +106,7 @@ def batch_from_numpy(payload: np.ndarray, plen: np.ndarray,
             torch.from_numpy(plen).to(dev), torch.from_numpy(out_len).to(dev))
 
 
+@span("xp.decode", "compute")
 def decode_batch(payload: torch.Tensor, plen: torch.Tensor,
                  out_len: torch.Tensor, U: int):
     """Decode a batch of plain Xpress unit streams.
@@ -141,6 +144,7 @@ def _records_to_output(rec_pos, rec_val, p_final, errk, out_len, U):
     return out, err
 
 
+@span("xp.pack_units", "stage")
 def pack_units(streams, out_lens, unit_size: int, device):
     """Unit streams -> a batch on ``device``, one row per unit, padded to
     the longest stream.  Raises :class:`ArgError` for an out_len past
@@ -157,14 +161,14 @@ def pack_units(streams, out_lens, unit_size: int, device):
                         "encoding")
     N = len(streams)
     P = -(-max(1, max(len(s) for s in streams)) // 16) * 16
-    payload = np.zeros((N, P), np.uint8)
+    payload = staging_rows(N, P, device)
     plen = np.zeros(N, np.int32)
     for i, s in enumerate(streams):
         payload[i, :len(s)] = np.frombuffer(s, np.uint8)
+        payload[i, len(s):] = 0
         plen[i] = len(s)
-    return (torch.from_numpy(payload).to(device),
-            torch.from_numpy(plen).to(device),
-            torch.from_numpy(np.asarray(out_lens, np.int32)).to(device))
+    return tuple(to_device(a, device) for a in (
+        payload, plen, np.asarray(out_lens, np.int32)))
 
 
 def decompress_units(streams, out_lens, unit_size=UNIT, fast_resolve=False,
@@ -186,12 +190,16 @@ def decompress_units(streams, out_lens, unit_size=UNIT, fast_resolve=False,
     out_lens = [int(o) for o in out_lens]
     if len(out_lens) != len(streams):
         raise ArgError("one out_len per stream is required")
-    out, err = decode_batch(*pack_units(streams, out_lens, unit_size, dev),
-                            unit_size)
-    if bool(err.any()):
+    batch = pack_units(streams, out_lens, unit_size, dev)
+    count("xp.units", len(streams))
+    out, err = decode_batch(*batch, unit_size)
+    if any_set(err, "sync.xp_err"):
         raise DataError("Xpress: malformed unit stream")
-    out = out.cpu().numpy()
-    return [out[i, :o].tobytes() for i, o in enumerate(out_lens)]
+    out = to_host(out, "sync.xp_output", pinned=True)
+    with span("xp.split_output", "stage"):
+        units = row_bytes(out, out_lens)
+        del out  # the host rows are freed in the stage
+    return units
 
 
 def _oneshot_unit(n: int) -> int:
@@ -240,9 +248,14 @@ def encode_batch(units: torch.Tensor, ulen: torch.Tensor,
       payload: uint8 [N, max_payload(n)] stream bytes, 0 past plen
       plen:    int32 [N] stream length, 0 for an empty unit
     """
-    best_len, best_disp, use_match, okpos = find_matches(units, ulen, match)
-    committed = greedy_commit(use_match, best_len, okpos)
-    return assemble_payload(units, best_len, best_disp, use_match, committed)
+    with span("xp.find_matches", "compute"):
+        best_len, best_disp, use_match, okpos = find_matches(units, ulen,
+                                                             match)
+    with span("xp.greedy_commit", "compute"):
+        committed = greedy_commit(use_match, best_len, okpos)
+    with span("xp.assemble_payload", "compute"):
+        return assemble_payload(units, best_len, best_disp, use_match,
+                                committed)
 
 
 def find_matches(units: torch.Tensor, ulen: torch.Tensor,
@@ -442,6 +455,7 @@ def compress_units(units, unit_size=UNIT, *, device="cuda") -> list:
         return []
     if any(len(u) > unit_size for u in units):
         raise ArgError("unit larger than unit_size")
+    count("xp.units", len(units))
     return row_streams(*encode_batch(*unit_rows(units, unit_size, dev)))
 
 
